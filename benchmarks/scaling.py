@@ -1,18 +1,19 @@
-"""Multi-chip scaling-efficiency harness (BASELINE.json: >= 90% rays/s
-efficiency 1 chip -> 2 hosts).
+"""Multi-device scaling-efficiency harness.
 
 Measures the pixel-sharded forward render (and optionally the
 scene-parallel mesh render) over growing mesh sizes 1, 2, 4, ... N and
 reports throughput + efficiency vs the 1-device run.  Prints one JSON
 line per mesh size:
 
-    {"layout": "pixel", "devices": 4, "ms_per_render": ..,
-     "mrays_per_s": .., "efficiency": 0.97}
+    {"layout": "pixel", "engine": "pallas", "devices": 4,
+     "ms_per_render": .., "mrays_per_s": .., "efficiency": 0.97,
+     "device": {...}}
 
-Runs today on whatever is attached: a single TPU chip (degenerate n=1
-row — the harness is ready for the day a slice is), or the 8-virtual-
-device CPU rig for a plumbing check (CPU wall times are NOT a TPU
-scaling claim and are labeled backend=cpu).
+``--layout pixel`` shards image rows with the engine render.choose_engine
+picks (the GPU kernel per shard on GPUs, the tracer elsewhere);
+``--layout scene`` shards the triangles of a mesh scene (tracer).  On the
+virtual-device CPU rig the wall times are a plumbing check, not a scaling
+claim; every line names the device it ran on.
 
     python benchmarks/scaling.py [--max-devices 8] [--layout pixel|scene]
     [--width 1920 --height 1080 --depth 4]
@@ -75,23 +76,29 @@ def main(argv=None):
                                RenderConfig)
     from tpuray.meshes import mesh_benchmark_scene
     from tpuray.parallel.shard import (make_mesh, render_scene_parallel,
-                                       render_sharded)
-    from tpuray.sceneio import load_scene
-    from tpuray.textures import load_default_assets
+                                       render_sharded, render_sharded_pallas)
+    from tpuray.render import choose_engine
+    from tpuray.scene import canonical_scene_spec
+    from tpuray.textures import seeded_assets
+    from tpuray.utils.compile_cache import enable_compile_cache
+    from tpuray.utils.metrics import device_info
 
+    enable_compile_cache()
     n_avail = len(jax.devices())
     n_max = min(args.max_devices or n_avail, n_avail)
-    backend = jax.default_backend()
+    device = device_info()
 
+    cfg = RenderConfig(width=args.width, height=args.height,
+                       max_depth=args.depth, chunk_size=0)
     if args.layout == "scene":
         scene = mesh_benchmark_scene(args.mesh_order).to_scene()
-        render_fn = render_scene_parallel
+        engine, render_fn = "xla", render_scene_parallel
     else:
-        scene = load_scene("/root/reference/scenes/render.map").to_scene()
-        render_fn = render_sharded
-    assets = load_default_assets()
-    cfg = RenderConfig(width=args.width, height=args.height,
-                       max_depth=args.depth, chunk_size=0, engine="xla")
+        scene = canonical_scene_spec().to_scene()
+        engine = choose_engine(scene, cfg)
+        render_fn = (render_sharded_pallas if engine == "pallas"
+                     else render_sharded)
+    assets = seeded_assets(0)
     basis = perspective_basis(
         Camera(GOLDEN_CAMERA_ORIGIN, GOLDEN_CAMERA_LOOKDIR, 90.0, 1.0),
         cfg.width, cfg.height)
@@ -107,10 +114,9 @@ def main(argv=None):
         if base_rate is None:
             base_rate = rate
         print(json.dumps({
-            "layout": args.layout, "backend": backend, "devices": n,
-            "ms_per_render": round(per * 1e3, 1),
-            "mrays_per_s": round(rate, 2),
-            "efficiency": round(rate / (base_rate * n), 3),
+            "layout": args.layout, "engine": engine, "devices": n,
+            "ms_per_render": per * 1e3, "mrays_per_s": rate,
+            "efficiency": rate / (base_rate * n), "device": device,
         }), flush=True)
         n *= 2
 

@@ -1,6 +1,8 @@
-"""Staged benchmark suite — the 5 BASELINE.json configurations.
+"""Staged benchmark suite: six render configurations.
 
-Prints one JSON line per stage.  Same timing methodology as bench.py
+Prints one JSON line per stage with the engine render.choose_engine picks
+for it and the device it ran on (platform, device kind, count, and the
+card's name and power limit).  Same timing methodology as bench.py
 (chained in-jit renders, scalar-readback sync, slope).
 
     python benchmarks/stages.py [--stages 1,2,3] [--chain 4]
@@ -39,11 +41,10 @@ def measure(render_inner, scene, assets, basis, cfg, chain):
         return best
 
     per = (best_of(chain) - best_of(1)) / (chain - 1)
-    # fast renders (stage 1 is sub-ms) need a longer chain than the
-    # default 4 for the slope to rise above timer jitter — a noisy
-    # chain-4 slope can read several ms high OR negative (the r5
-    # validate run measured 5.7 ms for a 0.7 ms render), so any
-    # sub-8ms estimate is re-measured at chain 64
+    # fast renders need a longer chain than the default 4 for the slope
+    # to rise above timer jitter (a noisy chain-4 slope can read several
+    # ms high OR negative), so any sub-8ms estimate is re-measured at
+    # chain 64
     if per < 8e-3 and chain < 64:
         for n in (1, 64):
             float(render_n(basis, n))
@@ -58,58 +59,56 @@ def main(argv=None):
     args = ap.parse_args(argv)
     stages = {int(s) for s in args.stages.split(",")}
 
-    import jax
-
     from tpuray.camera import Camera, perspective_basis
     from tpuray.config import (GOLDEN_CAMERA_LOOKDIR, GOLDEN_CAMERA_ORIGIN,
                                RenderConfig)
     from tpuray.meshes import mesh_benchmark_scene
-    from tpuray.render import render_from_basis_pallas, render_from_basis_xla
-    from tpuray.sceneio import load_scene
-    from tpuray.textures import load_default_assets
+    from tpuray.render import (choose_engine, render_from_basis_pallas,
+                               render_from_basis_xla)
+    from tpuray.scene import canonical_scene_spec
+    from tpuray.textures import seeded_assets
+    from tpuray.utils.compile_cache import enable_compile_cache
+    from tpuray.utils.metrics import device_info
 
-    on_tpu = jax.default_backend() != "cpu"
-    pallas = (render_from_basis_pallas.__wrapped__ if on_tpu
-              else render_from_basis_xla.__wrapped__)
-    xla = render_from_basis_xla.__wrapped__
-
-    scene = load_scene("/root/reference/scenes/render.map").to_scene()
-    assets = load_default_assets()
+    enable_compile_cache()
+    renders = {"pallas": render_from_basis_pallas.__wrapped__,
+               "xla": render_from_basis_xla.__wrapped__}
+    scene = canonical_scene_spec().to_scene()
+    assets = seeded_assets(0)
     cam = Camera(GOLDEN_CAMERA_ORIGIN, GOLDEN_CAMERA_LOOKDIR, 90.0, 1.0)
+    device = device_info()
 
-    # (stage, name, engine, scene, cfg)
+    # (stage, name, scene, cfg)
     defs = {
-        1: ("256x256_depth1_diffuse", pallas, scene,
+        1: ("256x256_depth1_diffuse", scene,
             RenderConfig(width=256, height=256, max_depth=1,
                          shadow_samples=0, chunk_size=0)),
-        2: ("800x600_depth15_reference", pallas, scene,
+        2: ("800x600_depth15_reference", scene,
             RenderConfig(width=800, height=600, max_depth=15, chunk_size=0)),
-        3: ("1920x1080_depth4", pallas, scene,
+        3: ("1920x1080_depth4", scene,
             RenderConfig(width=1920, height=1080, max_depth=4,
                          chunk_size=0)),
-        4: ("3840x2160_depth6", pallas, scene,
+        4: ("3840x2160_depth6", scene,
             RenderConfig(width=3840, height=2160, max_depth=6,
                          chunk_size=0)),
-        5: ("512x384_depth3_mesh7k", pallas,
-            mesh_benchmark_scene(4).to_scene(),
+        5: ("512x384_depth3_mesh7k", mesh_benchmark_scene(4).to_scene(),
             RenderConfig(width=512, height=384, max_depth=3, chunk_size=0)),
-        # the full BASELINE config 5 (10k-triangle mesh, 4K, depth 6);
-        # the multi-host sharding half of that config needs real v5e-16
-        # hardware — this measures the single-chip render
-        6: ("3840x2160_depth6_mesh10k", pallas,
+        6: ("3840x2160_depth6_mesh10k",
             mesh_benchmark_scene(4, torus_res=(64, 40)).to_scene(),
             RenderConfig(width=3840, height=2160, max_depth=6,
                          chunk_size=0)),
     }
 
     for s in sorted(stages):
-        name, engine, sc, cfg = defs[s]
+        name, sc, cfg = defs[s]
+        engine = choose_engine(sc, cfg)
         basis = perspective_basis(cam, cfg.width, cfg.height)
-        per = measure(engine, sc, assets, basis, cfg, args.chain)
+        per = measure(renders[engine], sc, assets, basis, cfg, args.chain)
         print(json.dumps({
-            "stage": s, "config": name,
-            "ms_per_render": round(per * 1e3, 1),
-            "mrays_per_s": round(cfg.num_pixels / per / 1e6, 2),
+            "stage": s, "config": name, "engine": engine,
+            "ms_per_render": per * 1e3,
+            "mrays_per_s": cfg.num_pixels / per / 1e6,
+            "device": device,
         }), flush=True)
 
 

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 
 from tpuray.camera import Camera, generate_rays, perspective_basis
 from tpuray.config import RenderConfig
-from tpuray.meshes import (add_mesh, icosphere, mesh_benchmark_scene, torus)
+from tpuray.meshes import add_mesh, icosphere, mesh_benchmark_scene
 from tpuray.kernels.trace import trace_rays
 from tpuray.scene import (PLASTIC, LightSpec, PlaneSpec, SceneSpec,
                           SphereSpec)
@@ -56,41 +56,6 @@ def test_icosphere_renders_like_analytic_sphere():
     # agreement everywhere except the silhouette ring (faceting)
     assert (diff.max(-1) < 0.05).mean() > 0.93, \
         f"mesh-vs-analytic agreement {(diff.max(-1) < 0.05).mean()}"
-
-
-def test_streamed_tri_blocks_match_xla_tracer(monkeypatch):
-    """Scenes above TRI_MAX_TRIANGLES stream triangle blocks from HBM
-    through a double-buffered VMEM scratch (kernels/pallas_trace.py
-    tri_sync/tri_load).  Forcing the cap down exercises that path on a
-    small mesh in interpret mode; the streamed image must match the XLA
-    tracer like the VMEM-resident path does."""
-    import tpuray.kernels.pallas_trace as pt
-    from tpuray.kernels.pallas_trace import render_pallas
-    from tpuray.scene import canonical_scene_spec
-    from tpuray.textures import load_default_assets
-
-    monkeypatch.setattr(pt, "TRI_MAX_TRIANGLES", 64)
-    monkeypatch.setattr(pt, "TRI_STREAM_TB", 128)
-
-    spec = canonical_scene_spec()
-    spec.spheres = spec.spheres[:1]
-    v, f = icosphere(1)   # 80 tris > the patched 64-tri VMEM cap
-    add_mesh(spec, v, f, PLASTIC.replace(rgb=(0.9, 0.7, 0.2)), scale=0.8,
-             offset=(0.8, 0.8, 1.5))
-    scene = spec.to_scene()
-    assets = load_default_assets()
-    W, H = 32, 16
-    cfg = RenderConfig(width=W, height=H, max_depth=2, chunk_size=0)
-    basis = perspective_basis(
-        Camera((0.8, 2.5, -8.0), (0.2, 0.0, 1.0), 90.0, 1.0), W, H)
-    o, d = generate_rays(basis, W, H)
-    ids = jnp.arange(W * H, dtype=jnp.uint32)
-
-    img_p = np.asarray(render_pallas(scene, assets, basis, cfg,
-                                     interpret=True))
-    img_x = np.asarray(trace_rays(scene, assets, o, d, ids,
-                                  cfg)).reshape(H, W, 3)
-    assert np.abs(img_p - img_x).mean() < 5e-3
 
 
 def test_mesh_scene_archive_roundtrip():

@@ -1,9 +1,11 @@
 """Native C++ runtime library tests: PNG codec + scene-archive codec.
 
-Validated against the pure-Python implementations and the committed
-reference artifacts (render.map, out/scene.png).  Skipped when the library
-has not been built (``make -C tpuray/native``).
+Validated against the pure-Python implementations and, where a reference
+checkout exists, the reference's committed artifacts (render.map,
+out/scene.png).  The module fixture builds the library
+(``make -C tpuray/native``).
 """
+import os
 import subprocess
 
 import numpy as np
@@ -11,10 +13,8 @@ import pytest
 
 from tpuray import native_lib
 from tpuray.scene import canonical_scene_spec
+from tpuray.io import read_png
 from tpuray.sceneio import dump_scene, load_scene
-
-RENDER_MAP = "/root/reference/scenes/render.map"
-GOLDEN_PNG = "/root/reference/out/scene.png"
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -31,19 +31,31 @@ class TestPngCodec:
         native_lib.write_png(p, img)
         assert (native_lib.read_png(p) == img).all()
 
-    def test_reads_reference_golden_image(self):
-        from PIL import Image
-        ours = native_lib.read_png(GOLDEN_PNG)
-        with Image.open(GOLDEN_PNG) as im:
-            ref = np.asarray(im.convert("RGB"))
+    def test_interops_with_python_codec(self, tmp_path):
+        """Files written by either codec read back identically through the
+        other (tpuray.io is the zlib + numpy one)."""
+        from tpuray.io import write_png
+        img = np.random.default_rng(8).integers(
+            0, 256, (19, 23, 3)).astype(np.uint8)
+        p_nat, p_py = str(tmp_path / "n.png"), str(tmp_path / "p.png")
+        native_lib.write_png(p_nat, img)
+        write_png(p_py, img)
+        assert (read_png(p_nat) == img).all()
+        assert (native_lib.read_png(p_py) == img).all()
+
+    def test_reads_reference_golden_image(self, reference):
+        golden = os.path.join(reference, "out", "scene.png")
+        ours = native_lib.read_png(golden)
+        ref = read_png(golden)            # the pure-Python decoder
         assert ours.shape == (600, 800, 3)
         assert (ours == ref).all()
 
 
 class TestSceneCodec:
-    def test_reads_reference_archive(self):
-        spheres, planes, lights, tris = native_lib.scene_read(RENDER_MAP)
-        spec = load_scene(RENDER_MAP)  # python parser as oracle
+    def test_reads_reference_archive(self, reference):
+        render_map = os.path.join(reference, "scenes", "render.map")
+        spheres, planes, lights, tris = native_lib.scene_read(render_map)
+        spec = load_scene(render_map)  # python parser as oracle
         assert len(spheres) == len(spec.spheres) == 4
         assert len(planes) == len(spec.planes) == 2
         assert len(lights) == len(spec.lights) == 3

@@ -1,13 +1,19 @@
 """Scene archive tests: parse/round-trip the committed 723-byte render.map
-(scenes/render.map in the reference) and regenerate it from source values
-(scene_dump.c:8-71)."""
+(scenes/render.map in the reference checkout) and regenerate it from source
+values (scene_dump.c:8-71)."""
+import os
+
 import numpy as np
 import pytest
 
 from tpuray import (GLASS, canonical_scene_spec, dumps_scene, loads_scene,
                     sceneio)
 
-REF_MAP = "/root/reference/scenes/render.map"
+
+@pytest.fixture
+def ref_map(reference):
+    with open(os.path.join(reference, "scenes", "render.map"), "rb") as f:
+        return f.read()
 
 # Byte ranges of uninitialized C struct padding in the reference archive
 # (fwrite of padded structs dumps stack garbage there): radius padding in
@@ -55,8 +61,8 @@ def _zero_mat_padding(b: bytearray, moff: int) -> None:
         b[i] = 0
 
 
-def test_parse_committed_archive():
-    spec = loads_scene(open(REF_MAP, "rb").read())
+def test_parse_committed_archive(ref_map):
+    spec = loads_scene(ref_map)
     assert len(spec.spheres) == 4
     assert len(spec.planes) == 2
     assert len(spec.lights) == 3
@@ -81,18 +87,18 @@ def test_parse_committed_archive():
     assert spec.lights[2].rgb == (0.0, 0.0, 1.0)
 
 
-def test_roundtrip_byte_exact_modulo_padding():
-    buf = open(REF_MAP, "rb").read()
+def test_roundtrip_byte_exact_modulo_padding(ref_map):
+    buf = ref_map
     rt = dumps_scene(loads_scene(buf))
     assert len(rt) == len(buf) == 723
     assert _zero_padding(rt) == _zero_padding(buf)
 
 
-def test_canonical_scene_matches_committed_archive():
+def test_canonical_scene_matches_committed_archive(ref_map):
     """Our scenegen (scene.canonical_scene_spec) must regenerate render.map
     byte-exactly modulo uninitialized padding — the same guarantee as the
     reference's `scene` executable (SURVEY.md §3.3)."""
-    buf = open(REF_MAP, "rb").read()
+    buf = ref_map
     ours = dumps_scene(canonical_scene_spec())
     assert _zero_padding(ours) == _zero_padding(buf)
 

@@ -1,15 +1,16 @@
-"""tpuray — a TPU-native differentiable Whitted raytracer (JAX/XLA/Pallas).
+"""tpuray — a differentiable Whitted raytracer in JAX, with a Pallas GPU
+kernel.
 
 A from-scratch re-design of the capabilities of the reference C/OpenCL
 raytracer (monoamine11231/Example-GUI-OpenCL-Raytracer; see SURVEY.md):
 spheres + infinite planes (+ triangle meshes as an extension), Phong
 materials with reflection and dielectric refraction, stochastic soft
-shadows, tiled plane textures and a cubemap skybox — with exact forward
-parity against the committed golden render, reverse-mode gradients to every
-scene parameter, and pixel-tile sharding across TPU meshes.
+shadows, tiled plane textures and a cubemap skybox — with forward parity
+against the reference's golden render, reverse-mode gradients to every
+scene parameter, and pixel sharding across devices.
 
 Layer map (reference -> here):
-  src/cl/*.cl (device kernels)   -> tpuray.kernels (jnp oracle + Pallas)
+  src/cl/*.cl (device kernels)   -> tpuray.kernels (XLA tracer + GPU kernel)
   src/opencl_wrap.{h,c} (runtime)-> jax.jit / shard_map (+ tpuray.native IO)
   src/cpu_ray.{h,c} (camera/png) -> tpuray.camera, tpuray.io
   src/cpu_obj.{h,c} (scene/ser.) -> tpuray.scene, tpuray.sceneio
@@ -20,12 +21,12 @@ Layer map (reference -> here):
 from .camera import Camera, PerspectiveBasis, generate_rays, perspective_basis
 from .config import RenderConfig
 from .diff import render_pallas_diff
-from .render import (render, render_from_basis, render_from_basis_checked,
-                     render_u8)
+from .render import choose_engine, render, render_from_basis, render_u8
 from .scene import (GLASS, MIRROR, PLASTIC, STONE, LightSpec, MaterialSpec,
                     Materials, PlaneSpec, Scene, SceneSpec, SphereSpec,
                     TriangleSpec, build_scene, canonical_scene_spec)
 from .sceneio import dump_scene, dumps_scene, load_scene, loads_scene
-from .textures import SceneAssets, load_default_assets, solid_assets
+from .textures import (SceneAssets, load_default_assets, seeded_assets,
+                       solid_assets)
 
 __version__ = "0.1.0"

@@ -1,19 +1,21 @@
 """Inverse rendering: recover render.map's material parameters and light
-positions from a target image by gradient descent (BASELINE.json config 4).
+positions from a target image by gradient descent.
 
 No reference analog (the reference is forward-only); this is the
 north-star differentiable-rendering demo.  The target is a render of the
-TRUE scenes/render.map (the scene behind the committed golden image,
-/root/reference/out/scene.png); the optimization starts from perturbed
-material parameters (rgb/ambient/diffuse/specular/reflectivity of every
-sphere and plane) and perturbed light positions, and recovers them by adam
-on the L2 image loss.
+TRUE canonical render.map scene (the scene behind the reference's golden
+image) with textures and skybox generated from a seed; the optimization
+starts from perturbed material parameters (rgb/ambient/diffuse/specular/
+reflectivity of every sphere and plane) and perturbed light positions, and
+recovers them by adam on the L2 image loss.
 
-Two gradient engines:
-  * ``pallas`` (TPU): the megakernel custom VJP — Pallas record-mode
-    forward + saved-path replay backward (diff.render_pallas_diff);
+Two gradient engines, picked by render.choose_engine for ``--engine auto``:
+  * ``pallas`` (GPU): the kernel's custom VJP — record-mode forward +
+    saved-path replay backward (diff.render_pallas_diff);
   * ``xla``: reverse-mode AD through the scan tracer (the FD-validated
-    oracle; works on CPU).
+    oracle; works anywhere).
+``--engine pallas --interpret`` runs the kernel in interpret mode (CPU
+testing).
 
     python -m tpuray.apps.invrender [--steps 300] [--width 128 --height 96]
         [--engine auto] [--checkpoint out/invrender.npz] [--resume]
@@ -34,15 +36,14 @@ from ..camera import Camera, perspective_basis
 from ..config import (GOLDEN_CAMERA_FOCAL, GOLDEN_CAMERA_FOV,
                       GOLDEN_CAMERA_LOOKDIR, GOLDEN_CAMERA_ORIGIN,
                       RenderConfig)
-from ..render import render_from_basis_xla
-from ..sceneio import load_scene
-from ..textures import load_default_assets
+from ..render import choose_engine, render_from_basis_xla
+from ..scene import canonical_scene_spec
+from ..textures import seeded_assets
 from ..utils.checkpoint import load_pytree, save_pytree
+from ..utils.compile_cache import enable_compile_cache
 
-RENDER_MAP = "/root/reference/scenes/render.map"
-
-# "material params + light position" (BASELINE.json config 4): every
-# shading-weight field of every sphere/plane material, plus light origins.
+# "material params + light position": every shading-weight field of every
+# sphere/plane material, plus light origins.
 # Geometry, IoR, shininess exponents and texture ids/scales stay frozen.
 OPT_MAT_FIELDS = ("rgb", "ambient", "diffuse", "specular", "reflectivity")
 
@@ -174,25 +175,33 @@ def main(argv=None):
                          "fitting materials first anchors the basin)")
     ap.add_argument("--engine", default="auto",
                     choices=("auto", "pallas", "xla"))
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--interpret", action="store_true",
+                    help="with --engine pallas: run the GPU kernel in "
+                         "Pallas interpret mode (CPU testing)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the perturbation and of the generated "
+                         "textures and skybox")
     ap.add_argument("--checkpoint", default="out/invrender.npz")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--every", type=int, default=25)
     args = ap.parse_args(argv)
-
-    engine = args.engine
-    if engine == "auto":
-        engine = "pallas" if jax.default_backend() != "cpu" else "xla"
+    enable_compile_cache()
 
     cfg = RenderConfig(width=args.width, height=args.height,
                        max_depth=args.depth, chunk_size=0, loop="scan",
                        shadow_samples=args.shadow_samples)
-    assets = load_default_assets()
+    assets = seeded_assets(args.seed)
     cam = Camera(GOLDEN_CAMERA_ORIGIN, GOLDEN_CAMERA_LOOKDIR,
                  GOLDEN_CAMERA_FOV, GOLDEN_CAMERA_FOCAL)
     basis = perspective_basis(cam, cfg.width, cfg.height)
 
-    truth = load_scene(RENDER_MAP).to_scene()
+    truth = canonical_scene_spec().to_scene()
+    interp = args.interpret
+    if interp and args.engine != "pallas":
+        raise SystemExit("--interpret runs the GPU kernel: pass it with "
+                         "--engine pallas")
+    engine = ("pallas" if interp
+              else choose_engine(truth, cfg.replace(engine=args.engine)))
     truth_params, static = diff.partition(truth)
     mask = optimize_mask(truth_params)
     # material weights are projected back to >= 0 after each update; light
@@ -212,10 +221,8 @@ def main(argv=None):
     if engine == "pallas":
         # preflight: size the node-record buffer to the scene's actual
         # worst-case DFS path count, so the replay backward loses no
-        # subtree gradients (the record analog of the event-overflow
-        # feedback loop in render_from_basis_checked)
+        # subtree gradients
         from ..kernels.pallas_trace import render_pallas_record
-        interp = jax.default_backend() == "cpu"   # Mosaic needs TPU
         _, rec0 = render_pallas_record(truth, assets, basis, cfg,
                                        interpret=interp)
         need = int(rec0["max_nodes"])
@@ -229,12 +236,14 @@ def main(argv=None):
         render = lambda s: jnp.clip(  # noqa: E731
             diff.render_pallas_diff(s, assets, basis, cfg, 0.0, interp),
             0.0, 1.0)
-        target = render(truth)
     else:
         render = lambda s: jnp.clip(  # noqa: E731
             render_from_basis_xla(s, assets, basis, cfg), 0.0, 1.0)
-        target = render(truth)
-    target = jax.lax.stop_gradient(target)
+    # the target comes from a jitted program like the training renders: an
+    # op-by-op render may round differently (no fused multiply-adds) and
+    # flip measure-zero texel picks, e.g. along the horizon row, leaving a
+    # loss floor no parameter can remove
+    target = jax.lax.stop_gradient(jax.jit(render)(truth))
 
     params = perturb(truth_params, mask, args.seed,
                      mat_scale=args.mat_scale, light_shift=args.light_shift)
@@ -259,10 +268,9 @@ def main(argv=None):
                                                      (params, opt_state))
             print(f"resumed from {args.checkpoint} @ step {step0}")
 
-    import functools
-
-    @functools.partial(jax.jit, static_argnames=("lights_on",))
-    def train_step(params, opt_state, lights_on: bool):
+    # lights_on is traced, not static: both phases share one compiled step
+    @jax.jit
+    def train_step(params, opt_state, lights_on):
         def loss_fn(p):
             img = render(diff.combine(p, static))
             return diff.l2_image_loss(img, target)
@@ -270,8 +278,9 @@ def main(argv=None):
         loss, g = jax.value_and_grad(loss_fn)(params)
         # frozen leaves keep zero gradient; in phase 1 lights are frozen
         # too; optimized weights stay physical via the projection below
-        g = jax.tree.map(lambda gi, m: gi if m else jnp.zeros_like(gi),
-                         g, mask if lights_on else clip_mask)
+        g = jax.tree.map(
+            lambda gi, m, isl: (jnp.where(lights_on, gi, 0.0) if isl else gi)
+            if m else jnp.zeros_like(gi), g, mask, light_mask)
         updates, opt_state = opt.update(g, opt_state)
         # lights take smaller steps than materials (world units vs [0,1])
         updates = jax.tree.map(
@@ -289,7 +298,7 @@ def main(argv=None):
     t0 = time.time()
     for step in range(step0, args.steps):
         params, opt_state, loss = train_step(params, opt_state,
-                                             step >= phase1_end)
+                                             jnp.asarray(step >= phase1_end))
         if step % args.every == 0 or step == args.steps - 1:
             err = param_error(params, truth_params, mask)
             err_l = param_error(params, truth_params, mask, "light")

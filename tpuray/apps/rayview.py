@@ -13,11 +13,14 @@ Three modes:
   per frame; the exact key->state mapping of rayinteractive.c.
 * ``--serve PORT`` — the live display surface: an in-browser viewer
   streaming MJPEG frames over HTTP (works through an SSH tunnel to a
-  remote TPU, where the reference's local minifb window
+  remote GPU host, where the reference's local minifb window
   (rayinteractive.c:118-122, 183-197) cannot), with browser keyboard
   events driving the same CameraController.  The render loop re-renders
   only when camera state changes — the vsync-paced mfb_wait_sync analog.
 * interactive stdin — type keys + enter; 'q' quits.
+
+The scene defaults to the canonical render.map scene and the textures and
+skybox are generated from ``--seed``; ``--scene`` renders an archive.
 """
 from __future__ import annotations
 
@@ -31,9 +34,11 @@ from ..camera import Camera, perspective_basis
 from ..config import RenderConfig
 from ..io import write_png
 from ..kernels.trace import quantize_image
-from ..render import render_from_basis
+from ..render import choose_engine, render_from_basis
+from ..scene import canonical_scene_spec
 from ..sceneio import load_scene
-from ..textures import load_default_assets
+from ..textures import seeded_assets
+from ..utils.compile_cache import enable_compile_cache
 
 MOVE_SPEED = 0.1    # rayinteractive.c:29
 ROT_SPEED = 0.05    # rayinteractive.c:30
@@ -114,7 +119,8 @@ document.addEventListener("keydown", (e) => {
 def serve(ctl, frame_u8, width, height, port, host="0.0.0.0",
           quality=85, started=None):
     """MJPEG live viewer (the reference's display surface, re-homed to a
-    browser so it works across the tunnel to a remote TPU).
+    browser so it works across a tunnel to a remote GPU host).  JPEG
+    encoding needs Pillow, which only this mode imports.
 
     ``frame_u8()`` -> HWC u8 frame for the CURRENT ctl state; it is called
     from a single render thread (JAX dispatch stays single-threaded), only
@@ -125,7 +131,12 @@ def serve(ctl, frame_u8, width, height, port, host="0.0.0.0",
     import threading
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-    from PIL import Image
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise SystemExit("rayview --serve encodes JPEG frames with Pillow "
+                         "(package 'pillow'), which is not installed; "
+                         "--keys and the stdin mode need no Pillow") from e
 
     state = {"jpeg": b"", "seq": 0, "ms": 0.0}
     cond = threading.Condition()
@@ -230,7 +241,11 @@ def serve(ctl, frame_u8, width, height, port, host="0.0.0.0",
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--scene", default="/root/reference/scenes/render.map")
+    ap.add_argument("--scene", default=None,
+                    help="scene archive (default: the canonical render.map "
+                         "scene, built in)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the generated textures and skybox")
     ap.add_argument("--width", type=int, default=800)
     ap.add_argument("--height", type=int, default=600)
     ap.add_argument("--depth", type=int, default=6)
@@ -243,12 +258,15 @@ def main(argv=None):
                          "(the display-surface mode; 0 = ephemeral port)")
     ap.add_argument("--jpeg-quality", type=int, default=85)
     args = ap.parse_args(argv)
+    enable_compile_cache()
 
-    scene = load_scene(args.scene).to_scene()
-    assets = load_default_assets()
+    scene = (load_scene(args.scene) if args.scene
+             else canonical_scene_spec()).to_scene()
+    assets = seeded_assets(args.seed)
     cfg = RenderConfig(width=args.width, height=args.height,
                        max_depth=args.depth, chunk_size=0)
     ctl = CameraController()
+    print(f"engine: {choose_engine(scene, cfg)}")
 
     def frame():
         basis = perspective_basis(ctl.camera(), cfg.width, cfg.height)
@@ -260,27 +278,6 @@ def main(argv=None):
 
     img, dt = frame()   # compile pass
     print(f"compiled; first frame {dt:.1f}s")
-
-    # one-time event-capacity preflight (the interactive analog of
-    # raypng's checked render): the per-frame loop can't afford the
-    # retry machinery, but the capacity a camera sweep needs is set by
-    # scene + depth, so check the start view once and surface any
-    # degradation loudly instead of silently dropping texels per frame
-    from ..render import _use_pallas, render_from_basis_checked
-    if _use_pallas(scene, cfg):
-        basis0 = perspective_basis(ctl.camera(), cfg.width, cfg.height)
-        _, info = render_from_basis_checked(scene, assets, basis0, cfg)
-        if info["retries"]:
-            # bake the discovered capacity into the frame loop's config
-            # (one recompile now, lossless frames after)
-            cfg = cfg.replace(event_slots=info["event_slots"])
-            print(f"event capacity raised to {info['event_slots']} "
-                  f"slots for this scene/depth (recompiling once)")
-            img, dt = frame()
-        if info["dropped"]:
-            print(f"WARNING: {info['dropped']} texel events dropped "
-                  f"even at {info['event_slots']} slots — frames are "
-                  f"degraded (scene exceeds the 64-slot event cap)")
 
     if args.serve is not None:
         serve(ctl, lambda: frame()[0], cfg.width, cfg.height, args.serve,

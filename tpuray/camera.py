@@ -1,6 +1,6 @@
 """Camera model and perspective-basis math.
 
-TPU-native equivalent of the reference's host camera layer (cpu_ray.{h,c}):
+The equivalent of the reference's host camera layer (cpu_ray.{h,c}):
 ``rinit_camera`` (cpu_ray.c:24-35), ``rlookat`` (cpu_ray.c:37-39) and
 ``rgen_perspective`` (cpu_ray.c:42-106), plus the spherical-angle camera
 controls of the GUI app (rayinteractive.c:85-92).
@@ -128,7 +128,7 @@ def generate_rays(basis: PerspectiveBasis, width: int, height: int,
     ``row0``: global image row of the first generated row — row-sharded
     rendering generates each shard's rays at their GLOBAL row indices so
     the sharded render is bit-identical to the unsharded one (mirrors the
-    megakernel's row0 uniform, pallas_trace.py).
+    GPU kernel's row0, pallas_trace.py).
 
     Returns (origins [H*W, 3], dirs [H*W, 3]).
     """

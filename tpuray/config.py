@@ -13,6 +13,24 @@ OpenCL program with different #defines).
 from __future__ import annotations
 
 import dataclasses
+import os
+
+# A checkout of the reference renderer (monoamine11231/Example-GUI-OpenCL-
+# Raytracer) beside the package.  Nothing on the main path needs it: only
+# ``--scene``/``--compare-golden`` and the golden-parity tests read it.
+REFERENCE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "reference")
+
+
+def reference_path(*parts: str) -> str:
+    """Path inside the reference checkout; raises when it is absent."""
+    path = os.path.join(REFERENCE_DIR, *parts)
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"{path} not found: the reference checkout is read from "
+            f"{REFERENCE_DIR}; the default scene and assets need none "
+            "(scene.canonical_scene_spec, textures.seeded_assets)")
+    return path
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,9 +43,10 @@ class RenderConfig:
     transparent_through: float = 0.8  # primitives.cl:7
     default_n: float = 1.0            # raytracing.cl:7
 
-    # --- TPU execution knobs (no reference analog) ---
-    # Pixels per traced chunk; chunks run sequentially via lax.map so HBM
-    # footprint and while-loop straggler cost stay bounded.  0 = whole image.
+    # --- execution knobs (no reference analog) ---
+    # Pixels per traced chunk (XLA tracer); chunks run sequentially via
+    # lax.map so the device-memory footprint and while-loop straggler cost
+    # stay bounded.  0 = whole image.
     chunk_size: int = 65536
     # Hard cap on DFS iterations per chunk (safety only; the while_loop exits
     # as soon as every lane finishes).  Worst-case node visits for a binary
@@ -39,42 +58,25 @@ class RenderConfig:
     loop: str = "while"
     # Iteration count for loop='scan'.  0 = auto (2 * 2^max_depth, capped).
     scan_iters: int = 0
-    # Rendering engine: 'pallas' = tile megakernel (fastest forward path),
+    # Rendering engine: 'pallas' = the GPU kernel (kernels/pallas_trace.py),
     # 'xla' = the whole-image while/scan tracer (differentiable, supports
-    # triangles), 'auto' = pallas when supported else xla.
+    # triangles), 'auto' = render.choose_engine's rule.
     engine: str = "auto"
-    # Deferred texel-event slots per pixel in the Pallas engine (sky + plane
-    # texture contributions resolved by one gather outside the kernel).
-    # 0 = auto: 2^(max_depth+1)-1, capped at 24.  The bound is exact only
-    # for max_depth <= 3; deeper traces can overflow (the kernel counts
-    # dropped events and render_pallas_stats / raypng surface them — raise
-    # event_slots when that happens).
-    event_slots: int = 0
     # Texture/skybox sampling: 'nearest' reproduces the reference's integer
     # texel fetch (primitives.cl:250-256, raytracing.cl:67-76) and is what
     # the golden comparison requires; 'bilinear' interpolates the 4
     # neighboring texels, which also gives texture lookups a spatial
     # derivative (hit-point gradients flow through the fractional weights).
-    # Both engines implement both modes (the megakernel emits 4 weighted
-    # events per bilinear fetch).
+    # Both engines implement both modes.
     filter: str = "nearest"
 
-    # Node-record slots per pixel for the Pallas record-mode forward (the
+    # Node-record slots per pixel for the kernel's record-mode forward (the
     # saved-path replay VJP saves one record per DFS node: packed hit id +
     # parent slot + branch, plus per-light soft-shadow ratios).  0 = auto:
     # 2^(max_depth+1)-1 capped at 48 (parent slots are 6-bit, so <= 64).
     # Overflowing nodes lose their subtree's gradient contribution (counted
     # and reported by render_pallas_record).
     record_slots: int = 0
-
-    def resolved_event_slots(self) -> int:
-        if self.event_slots:
-            return self.event_slots
-        if self.filter == "bilinear":
-            # 4 weighted events per texel fetch; base slots capped at 16
-            # to bound the per-tile VMEM event buffers at 64 slots
-            return min(2 ** (self.max_depth + 1) - 1, 16) * 4
-        return min(2 ** (self.max_depth + 1) - 1, 24)
 
     def resolved_record_slots(self) -> int:
         if self.record_slots:

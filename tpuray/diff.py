@@ -57,7 +57,7 @@ def l2_image_loss(rendered: jnp.ndarray, target: jnp.ndarray) -> jnp.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Megakernel custom VJP: Pallas forward, saved-path replay backward
+# GPU-kernel custom VJP: record-mode forward, saved-path replay backward
 # ---------------------------------------------------------------------------
 
 def _zero_cotangent(tree):
@@ -74,17 +74,17 @@ def _zero_cotangent(tree):
 def render_pallas_diff(scene: Scene, assets: SceneAssets,
                        basis: PerspectiveBasis, cfg: RenderConfig,
                        row0=0.0, interpret: bool = False):
-    """Differentiable megakernel render.
+    """Differentiable render on the GPU kernel.
 
-    Forward: the Pallas tile megakernel (record mode — same image, plus
-    per-node path records).  Backward: AD through the dense replay tracer
-    (kernels/replay.py), which reshades the recorded paths analytically —
-    no primitive search, no shadow feelers, no while loop.  Gradients flow
-    to every float leaf of ``scene`` and to the camera ``basis``; the u8
-    texture/skybox ``assets`` get zero cotangents (they are inputs, not
-    parameters).  North-star requirement (BASELINE.json: gradients via
-    custom VJPs); the scan-tracer equivalence is tested in
-    tests/test_pallas_vjp.py.
+    Forward: the kernel in record mode (kernels/pallas_trace.py — the same
+    image, plus per-node path records).  Backward: AD through the dense
+    replay tracer (kernels/replay.py), which reshades the recorded paths
+    analytically — no primitive search, no shadow feelers, no while loop.
+    Gradients flow to every float leaf of ``scene`` and to the camera
+    ``basis``; the u8 texture/skybox ``assets`` get zero cotangents (they
+    are inputs, not parameters).  The scan-tracer equivalence is tested in
+    tests/test_pallas_vjp.py.  Scenes with triangles raise (the kernel has
+    none; differentiate them through the scan tracer).
 
     ``row0`` is the shard's first global image row (row-sharded inverse
     rendering, parallel/shard.py) — a traced value with no gradient.

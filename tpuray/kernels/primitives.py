@@ -1,17 +1,17 @@
 """Vectorized geometry + shading primitives.
 
-TPU-native re-design of the reference's OpenCL primitives library
+A re-design of the reference's OpenCL primitives library
 (src/cl/primitives.cl).  Every function here operates on *batches* of rays
-— shape [P] / [P, 3] lanes mapping onto the TPU VPU — instead of one ray per
-work-item, and every data-dependent branch of the OpenCL source becomes a
-lane-wise ``jnp.where`` select.  NaN-signalling (the reference's TIR channel,
+— shape [P] / [P, 3] lanes — instead of one ray per work-item, and every
+data-dependent branch of the OpenCL source becomes a lane-wise ``jnp.where``
+select.  NaN-signalling (the reference's TIR channel,
 primitives.cl:138-139) is replaced by explicit boolean masks so gradients
 stay clean.
 
 All formulas are reproduced operation-for-operation in float32 (including
 the reference's quirks, flagged inline) so the forward render matches the
-C/OpenCL renderer to float32 rounding.  Citations point into
-/root/reference/.
+C/OpenCL renderer to float32 rounding.  Citations point into the
+reference's sources.
 """
 from __future__ import annotations
 
@@ -49,6 +49,17 @@ def distance3(a, b):
     return length3(a - b)
 
 
+def take_rows(table, idx):
+    """``table[clip(idx)]`` per lane: [N, ...] at idx [P] -> [P, ...].
+
+    An ordinary gather (its gradient a scatter-add into the table); an
+    empty table gives zeros."""
+    n = table.shape[0]
+    if n == 0:
+        return jnp.zeros(idx.shape + table.shape[1:], table.dtype)
+    return jnp.take(table, jnp.clip(idx, 0, n - 1), axis=0)
+
+
 def cross3(a, b):
     return jnp.stack([
         a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
@@ -81,6 +92,16 @@ def xorshift32(state: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
 # reflection / refraction / Fresnel — primitives.cl:127-160
 # ---------------------------------------------------------------------------
 
+def sqrt_pos(x):
+    """sqrt(max(x, 0)) whose gradient is ZERO (not NaN) where x <= 0.
+
+    ``sqrt(clip(x, 0))`` backward-evaluates to 0 * inf = NaN on clamped
+    lanes (TIR rays, degenerate quadratics on dead lanes); the double
+    where keeps those cotangents finite."""
+    pos = x > 0
+    return jnp.where(pos, jnp.sqrt(jnp.where(pos, x, 1.0)), 0.0)
+
+
 def reflect(incident, normal):
     """primitives.cl:127-130."""
     cos_i = -dot3(normal, incident)
@@ -98,7 +119,7 @@ def refract(n1, n2, incident, normal):
     cos_i = -dot3(normal, incident)
     sin_t2 = n * n * (1.0 - cos_i * cos_i)
     tir = sin_t2 > 1.0
-    cos_t = jnp.sqrt(jnp.clip(1.0 - sin_t2, 0.0, None))
+    cos_t = sqrt_pos(1.0 - sin_t2)
     out = n[..., None] * incident + (n * cos_i - cos_t)[..., None] * normal
     return out, tir
 
@@ -113,7 +134,7 @@ def schlick(n1, n2, incident, normal):
     n = n1 / n2
     sin_t2 = n * n * (1.0 - cos_x * cos_x)
     tir = sin_t2 > 1.0
-    cos_trans = jnp.sqrt(jnp.clip(1.0 - sin_t2, 0.0, None))
+    cos_trans = sqrt_pos(1.0 - sin_t2)
 
     use_trans = n1 > n2
     cos_x = jnp.where(use_trans, cos_trans, cos_x)
@@ -160,8 +181,7 @@ def intersect_plane(o, d, normal, point):
 
 def intersect_triangle(o, d, v0, v1, v2, eps=1e-7):
     """Möller–Trumbore ray/triangle test (extension: the reference has no
-    triangles; required by BASELINE.json config 5).  Double-faced, no
-    backface culling.  Returns (hit, t)."""
+    triangles).  Double-faced, no backface culling.  Returns (hit, t)."""
     e1 = v1 - v0
     e2 = v2 - v0
     pvec = cross3(d, e2)
@@ -181,10 +201,10 @@ def intersect_triangle(o, d, v0, v1, v2, eps=1e-7):
 # cubemap direction -> texel (skybox), primitives.cl:14-109
 # ---------------------------------------------------------------------------
 
-def _cube_face_coords(d, face_size: int):
-    """Shared core of the cubemap mapping: per-lane fractional in-face
-    coordinates (fu, fv) in [0, 1] plus the face's integer texel shifts."""
-    x, y, z = d[..., 0], d[..., 1], d[..., 2]
+def _cube_face_coords(x, y, z, face_size: int):
+    """Shared core of the cubemap mapping on direction components: per-lane
+    fractional in-face coordinates (fu, fv) in [0, 1] plus the face's
+    integer texel shifts."""
     ax, ay, az = jnp.abs(x), jnp.abs(y), jnp.abs(z)
     xp, yp, zp = x > 0, y > 0, z > 0
 
@@ -228,7 +248,12 @@ def map_to_cube(d, face_size: int):
     replicated here by applying the selects in the same order so later
     conditions overwrite earlier ones.
     """
-    fu, fv, shift_u, shift_v, fsf = _cube_face_coords(d, face_size)
+    return map_to_cube_xyz(d[..., 0], d[..., 1], d[..., 2], face_size)
+
+
+def map_to_cube_xyz(x, y, z, face_size: int):
+    """:func:`map_to_cube` on direction components (the GPU kernel's form)."""
+    fu, fv, shift_u, shift_v, fsf = _cube_face_coords(x, y, z, face_size)
     u = shift_u + (fu * fsf).astype(jnp.int32)
     v = shift_v + (fv * fsf).astype(jnp.int32)
     return u, v
@@ -238,7 +263,12 @@ def map_to_cube_float(d, face_size: int):
     """Continuous cubemap coords (uf, vf): the bilinear-filter analog of
     :func:`map_to_cube` (truncating them reproduces the nearest fetch).
     Differentiable w.r.t. the direction within a face."""
-    fu, fv, shift_u, shift_v, fsf = _cube_face_coords(d, face_size)
+    return map_to_cube_float_xyz(d[..., 0], d[..., 1], d[..., 2], face_size)
+
+
+def map_to_cube_float_xyz(x, y, z, face_size: int):
+    """:func:`map_to_cube_float` on direction components."""
+    fu, fv, shift_u, shift_v, fsf = _cube_face_coords(x, y, z, face_size)
     return (shift_u.astype(F32) + fu * fsf,
             shift_v.astype(F32) + fv * fsf)
 

@@ -1,13 +1,14 @@
-"""Saved-path replay tracer: the differentiable backward path of the
-Pallas megakernel.
+"""Saved-path replay tracer: the differentiable backward path of the GPU
+kernel.
 
-The megakernel's record mode (pallas_trace.py, ``record=True``) emits one
-compact record per DFS node — packed hit code + parent slot + branch bit,
-plus per-light soft-shadow ratios.  Those records freeze every *discrete*
-decision of the traversal: which primitive each ray hit, which light was
-seen, where refraction branched, and what fraction of each area light was
-occluded (the only RNG-dependent quantities; all piecewise-constant w.r.t.
-scene parameters, so recording them is exact for a.e. gradients).
+The kernel's record mode (pallas_trace.py, ``record=True``) emits one
+compact record per DFS node — hit code + parent slot + branch bit, the
+per-light soft-shadow ratios, and the texel the node fetched.  Those records
+freeze every *discrete* decision of the traversal: which primitive each ray
+hit, which light was seen, where refraction branched, which texel was read,
+and what fraction of each area light was occluded (the only RNG-dependent
+quantities; all piecewise-constant w.r.t. scene parameters, so recording
+them is exact for a.e. gradients).
 
 This module replays the trace densely in pure JAX: for each record slot it
 recomputes — differentiably, with no primitive search, no shadow-feeler
@@ -16,16 +17,14 @@ normal, the Phong shading against the recorded shadow ratios, the
 Schlick-blended throughput, and both child-ray candidates.  Children find
 their parent's ray/throughput via the recorded parent slot.  Summing every
 node's local radiance weighted by its throughput reproduces the kernel's
-image (tested), and ``jax.grad`` of that replay is the megakernel's
-backward pass (wired up as a ``jax.custom_vjp`` in tpuray/diff.py).
+image (tested), and ``jax.grad`` of that replay is the kernel's backward
+pass (wired up as a ``jax.custom_vjp`` in tpuray/diff.py).
 
 Reference analog: none — gradients are the north-star extension; the
-forward math replayed here is raytracing.cl:41-191 node-for-node, with
-citations in pallas_trace.py.
+forward math replayed here is raytracing.cl:41-191 node-for-node.
 """
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -37,28 +36,11 @@ from . import primitives as pr
 
 F32 = jnp.float32
 INV_PI = np.float32(1.0 / np.pi)
+_normalize = pr.normalize3
 
 
-def _normalize(v):
-    """Kernel-matching normalize (pallas_trace._normalize uses rsqrt):
-    keeps the replay's float rounding as close to the megakernel's as the
-    backend allows."""
-    n2 = pr.dot3(v, v)
-    inv = jax.lax.rsqrt(jnp.where(n2 > 0, n2, 1.0))
-    inv = jnp.where(n2 > 0, inv, 0.0)
-    return v * inv[..., None]
-
-
-def _sqrt_pos(x):
-    """sqrt(max(x, 0)) whose gradient is ZERO (not NaN) where x <= 0.
-
-    ``sqrt(clip(x, 0))`` backward-evaluates to 0 * inf = NaN on clamped
-    lanes (TIR rays, degenerate quadratics on dead record slots); the
-    double-where keeps those cotangents finite — the replay's analog of
-    the kernel/tracer masking discipline.
-    """
-    pos = x > 0
-    return jnp.where(pos, jnp.sqrt(jnp.where(pos, x, 1.0)), 0.0)
+_sqrt_pos = pr.sqrt_pos
+take = pr.take_rows
 
 
 def _sphere_t(o, d, center, radius, active):
@@ -70,13 +52,10 @@ def _sphere_t(o, d, center, radius, active):
     v = o - center
     a = pr.dot3(d, d)
     a = jnp.where(a > 0, a, 1.0)
-    # 2.0 * dot(v, d), NOT dot(2v, d): matches the kernel's op order
-    # (pallas_trace sphere_t) so both programs round the near-cancelling
-    # quadratic identically wherever the backend compiles them alike —
-    # grazing hits (disc ~ 1e-4 out of b^2 ~ 1e2) amplify any op-order
-    # rounding delta ~10x through the Schlick chain (see PARITY.md,
-    # round-5 chaotic-pixel analysis)
-    b = 2.0 * pr.dot3(v, d)
+    # dot(2v, d), the op order of primitives.intersect_sphere and the
+    # kernel: grazing hits (disc ~ 1e-4 out of b^2 ~ 1e2) amplify any
+    # op-order rounding delta ~10x through the Schlick chain (PARITY.md)
+    b = pr.dot3(2.0 * v, d)
     c = pr.dot3(v, v) - radius * radius
     sq = _sqrt_pos(b * b - 4.0 * a * c)
     two_a = 2.0 * a
@@ -84,33 +63,6 @@ def _sphere_t(o, d, center, radius, active):
     t_far = (-b + sq) / two_a
     return jnp.where(t_near < 0, t_far, t_near)
 
-
-def _refract(n1, n2, incident, normal):
-    """primitives.cl:132-144 with gradient-guarded TIR (cf. pr.refract,
-    whose clip-based cos_t NaNs the backward on TIR lanes)."""
-    n = n1 / n2
-    cos_i = -pr.dot3(normal, incident)
-    sin_t2 = n * n * (1.0 - cos_i * cos_i)
-    tir = sin_t2 > 1.0
-    cos_t = _sqrt_pos(1.0 - sin_t2)
-    out = n[..., None] * incident + (n * cos_i - cos_t)[..., None] * normal
-    return out, tir
-
-
-def _schlick(n1, n2, incident, normal):
-    """primitives.cl:146-160 with gradient-guarded transmission sqrt."""
-    r0 = (n1 - n2) / (n1 + n2)
-    r0 = r0 * r0
-    cos_x = -pr.dot3(normal, incident)
-    n = n1 / n2
-    sin_t2 = n * n * (1.0 - cos_x * cos_x)
-    tir = sin_t2 > 1.0
-    cos_trans = _sqrt_pos(1.0 - sin_t2)
-    use_trans = n1 > n2
-    cos_x = jnp.where(use_trans, cos_trans, cos_x)
-    x = 1.0 - cos_x
-    fr = r0 + (1.0 - r0) * x * x * x * x * x
-    return jnp.where(use_trans & tir, 1.0, fr)
 
 _MAT_FIELDS = ("ambient", "diffuse", "specular", "shininess",
                "transparent", "dielectric", "n", "reflectivity",
@@ -133,30 +85,29 @@ def _solid_tables(scene: Scene):
 def replay_render(scene: Scene, assets: SceneAssets,
                   basis: PerspectiveBasis, records: dict,
                   cfg: RenderConfig, row0=0.0) -> jnp.ndarray:
-    """Dense differentiable replay of a recorded megakernel trace.
+    """Dense differentiable replay of a recorded kernel trace.
 
-    Returns float32 linear rgb [H, W, 3]; equals the megakernel render of
-    the same (scene, basis) wherever no record slot overflowed.  ``row0``
-    must match the record forward's (row-sharded replay).
+    Returns float32 linear rgb [H, W, 3]; equals the kernel render of the
+    same (scene, basis) wherever no record slot overflowed.  ``row0`` must
+    match the record forward's (row-sharded replay).
     """
     ns, npl, nl = scene.num_spheres, scene.num_planes, scene.num_lights
-    nt = scene.num_triangles
-    if ns + npl > 64 or 64 + nl > 126:
+    if scene.num_triangles:
+        raise ValueError("the replay covers spheres, planes and lights; "
+                         "differentiate triangle scenes through the tracer")
+    if ns + npl > 64 or 64 + nl > 127:
         raise ValueError("replay hit-code space requires <= 64 solids and "
-                         "<= 62 lights (code 126 = triangle, 127 = miss)")
+                         "<= 63 lights (code 127 = miss)")
     width, height = cfg.width, cfg.height
     n_pix = width * height
     eps = np.float32(cfg.epsilon)
     default_n = np.float32(cfg.default_n)
+    bilin = cfg.filter == "bilinear"
 
     rec = records["rec"]          # [Krec, n_pix] i32
     ssr = records["ssr"]          # [Krec, nl, n_pix] f32
-    evi = records.get("ev_idx")   # [K, n_pix] i32 recorded texel picks
-    # streamed (> TRI_MAX_TRIANGLES) scenes record full-width winner ids
-    # in their own plane; VMEM-resident scenes pack 15 bits into rec
-    wid_plane = records.get("wid")
+    picks = records["pick"]       # [Krec, n_pix] i32 recorded texel picks
     Krec = rec.shape[0]
-    Kev = evi.shape[0] if evi is not None else 0
 
     o0, d0 = generate_rays(basis, width, height, row0)   # [n_pix, 3]
 
@@ -165,18 +116,8 @@ def replay_render(scene: Scene, assets: SceneAssets,
     tex = assets.textures.astype(F32) / F32(255.0)  # [N, Ht, Wt, 3]
     sky_h, sky_w = sky.shape[0], sky.shape[1]
     tex_h, tex_w = tex.shape[1], tex.shape[2]
-    if evi is not None:
-        from .pallas_trace import build_atlas
-        atlas = build_atlas(assets)
-    ecnt = jnp.zeros((n_pix,), jnp.int32)
-    # deferred texel terms: (idx [n_pix] i32 atlas index or -1,
-    # w [n_pix] f32 differentiable weight) per fetch, resolved after the
-    # slot loop in ONE batched atlas row-gather (see _batched_texel_sum).
-    # Per-slot 196k-element gathers run at the slow ~7 ns/element rate;
-    # the batched [n_fetch, n_pix] gather crosses the DMA fast-path
-    # cliff (GATHER_FAST_ELEMS) at ~2.4 ns/row — measured 63.5 -> ~10 ms
-    # replay forward at 512x384 d3.
-    tex_events: list = []
+    sky_flat = sky.reshape(-1, 3)
+    tex_flat = tex.reshape(-1, 3)
 
     # plane tangent bases (ray-independent, as in the kernel)
     pb0, pb1 = pr.plane_texture_basis(scene.plane_normal)  # [npl, 3] each
@@ -191,8 +132,6 @@ def replay_render(scene: Scene, assets: SceneAssets,
     for s in range(Krec):
         code = rec[s] & np.int32(0xFF)
         pbyte = (rec[s] >> np.int32(8)) & np.int32(0xFF)
-        wid = (wid_plane[s] if wid_plane is not None
-               else (rec[s] >> np.int32(16)) & np.int32(0x7FFF))
         written = rec[s] >= 0
 
         if s == 0:
@@ -204,20 +143,17 @@ def replay_render(scene: Scene, assets: SceneAssets,
             has_par = (pbyte & 0x80) != 0
             branch = (pbyte >> 6) & 1          # 0 = reflect, 1 = refract
             pslot = jnp.clip(pbyte & 0x3F, 0, Krec - 1)
-            # Parent-slot structure (kernel one_step continuation logic,
-            # pallas_trace.py): a node CONTINUING in place — the refract
-            # child when the parent pushed, else the reflect child —
-            # always lands in the very next record slot (pslot == s-1),
-            # while a POPPED node is always the stacked REFLECTED child
-            # of an earlier node (pslot <= s-2, branch == 0: the kernel
-            # stacks pc_refl only).  So the common case is a direct read
-            # of bufs[s-1], and only popped reflect children need the
-            # masked one-hot sum — over the 8-wide reflect half and
-            # slots <= s-2.  (One-hot sum, not take_along_axis: per-
-            # pixel dynamic gathers cost ~7 ns/element on TPU; the
-            # masked sum is pure VPU work.  This replaced a full-width
-            # sum over ALL earlier slots: O(Krec^2) 16-wide adds, ~2x
-            # the backward's cost at depth 15 — VERDICT r4 item 7.)
+            # Parent-slot structure (the kernel's continuation logic): a
+            # node CONTINUING in place — the refract child when the parent
+            # pushed, else the reflect child — always lands in the very
+            # next record slot (pslot == s-1), while a POPPED node is
+            # always the stacked REFLECTED child of an earlier node
+            # (pslot <= s-2, branch == 0: the kernel stacks pc_refl only).
+            # So the common case is a direct read of bufs[s-1], and only
+            # popped reflect children need the masked one-hot sum over the
+            # 8-wide reflect half of slots <= s-2 (a one-hot sum instead of
+            # a full-width sum over all earlier slots keeps the cost
+            # linear in Krec per slot).
             in_place = pslot == np.int32(s - 1)
             par_prev = bufs[s - 1]
             side_prev = jnp.where((branch == 1)[:, None],
@@ -236,181 +172,74 @@ def replay_render(scene: Scene, assets: SceneAssets,
 
         is_sphere = code < ns if ns else jnp.zeros_like(valid)
         is_plane = (code >= ns) & (code < ns + npl)
-        is_tri = (code == 126) & valid if nt else jnp.zeros_like(valid)
-        is_solid = (is_sphere | is_plane) & valid | is_tri
+        is_solid = (is_sphere | is_plane) & valid
         is_light = (code >= 64) & (code < 64 + nl) & valid
         is_miss = (code == 127) & valid
 
         # ---- light-hit radiance (primitives.cl:262-318 + the (1/d*d)==1
         # quirk at :287 — no distance falloff) ----
-        oh_l = (code[:, None] == (64 + jnp.arange(nl))[None, :]).astype(F32)
-        l_rgb = oh_l @ scene.light_rgb
-        l_i = oh_l @ scene.light_intensity
+        l_rgb = take(scene.light_rgb, code - 64)
+        l_i = take(scene.light_intensity, code - 64)
         img = img + jnp.where(is_light, f * l_i * INV_PI, 0.0)[:, None] \
             * l_rgb
 
         # ---- recorded-winner solid hit, recomputed differentiably ----
-        code_c = jnp.clip(code, 0, ns + npl - 1)
-        oh = (code_c[:, None] == jnp.arange(ns + npl)[None, :]).astype(F32)
-        oh_s = oh[:, :ns]
-        oh_p = oh[:, ns:]
-        m = {k: oh @ v for k, v in mat.items()}
-        m_rgb = oh @ rgb_tab
+        # the recorded winner's rows: every lane reads some row, and the
+        # hit-kind masks below keep only the right kind's
+        m = {k: take(v, code) for k, v in mat.items()}
+        m_rgb = take(rgb_tab, code)
 
-        center = oh_s @ scene.sphere_origin
-        radius = oh_s @ scene.sphere_radius
+        center = take(scene.sphere_origin, code)
+        radius = take(scene.sphere_radius, code)
         t_sph = _sphere_t(o, d, center, radius, is_sphere)
-        p_nrm = oh_p @ scene.plane_normal
-        p_pt = oh_p @ scene.plane_point
+        p_nrm = take(scene.plane_normal, code - ns)
+        p_pt = take(scene.plane_point, code - ns)
         _, t_pl = pr.intersect_plane(o, d, p_nrm, p_pt)
         t = jnp.where(is_sphere, t_sph, jnp.where(is_plane, t_pl, 0.0))
         t = jnp.where(is_solid, t, 0.0)
         hit = o + t[:, None] * d
         n_vec = jnp.where(is_sphere[:, None],
                           _normalize(hit - center), p_nrm)
-
-        if nt:
-            # recorded-winner triangle: Moller-Trumbore t with the search
-            # replaced by the recorded id (primitives.py:161-177, double-
-            # faced normal flip trace.py:306-310; kernel pallas_trace.py
-            # tri_closest / record emission)
-            widc = jnp.clip(wid, 0, nt - 1)
-            v0 = jnp.take(scene.tri_v0, widc, axis=0)
-            e1 = jnp.take(scene.tri_v1, widc, axis=0) - v0
-            e2 = jnp.take(scene.tri_v2, widc, axis=0) - v0
-            pvec = jnp.cross(d, e2)
-            det = pr.dot3(e1, pvec)
-            inv_det = 1.0 / jnp.where(det != 0, det, 1.0)
-            inv_det = jnp.where(det != 0, inv_det, 0.0)
-            tvec = o - v0
-            t_tri = pr.dot3(e2, jnp.cross(tvec, e1)) * inv_det
-            tn = _normalize(jnp.cross(e1, e2))
-            tn = jnp.where(pr.dot3(tn, d)[:, None] > 0, -tn, tn)
-            t = jnp.where(is_tri, t_tri, t)
-            hit = o + t[:, None] * d
-            n_vec = jnp.where(is_tri[:, None], tn, n_vec)
-            tri_m = {f: jnp.take(getattr(scene.tri_mat, f).astype(F32),
-                                 widc) for f in _MAT_FIELDS}
-            m = {k: jnp.where(is_tri, tri_m[k], v) for k, v in m.items()}
-            m_rgb = jnp.where(is_tri[:, None],
-                              jnp.take(scene.tri_mat.rgb, widc, axis=0),
-                              m_rgb)
-
         ph = hit + eps * n_vec
 
-        # ---- texel picks: sky on miss (raytracing.cl:61-81) and plane
-        # texture on textured hit (primitives.cl:217-259).
-        # Nearest: the recomputed index is the fallback; where the kernel
-        # recorded a texel event this slot re-uses that exact index so
-        # texel-boundary pixels match the kernel bit-for-bit (the index
-        # is discrete either way — only weights carry gradients).
-        # Bilinear: 4 taps per fetch; indices come from the 4 recorded
-        # events, the fractional weights are RECOMPUTED differentiably —
-        # this is where bilinear's spatial texture/sky gradient flows.
+        # ---- texel colours: sky on miss (raytracing.cl:61-81) and plane
+        # texture on a textured hit (primitives.cl:217-259).  Texel values
+        # are constants; only the weights carry gradients.
+        # Nearest: the texel the kernel recorded, so texel-boundary pixels
+        # match it exactly.  Bilinear: the 4 taps are recomputed, and their
+        # fractional weights give the spatial texture/sky gradient.
         textured = is_solid & is_plane & (m["texture_id"] > -0.5)
-        b0 = oh_p @ pb0
-        b1 = oh_p @ pb1
-        tid = jnp.clip(m["texture_id"].astype(jnp.int32), 0, None)
-        emit = is_miss | textured
-        bilin = cfg.filter == "bilinear"
-        n_ev = 4 if bilin else 1
-
-        def rec_at(t):
-            """Recorded event index at slot ecnt + t (-1 = none)."""
-            ec = jnp.clip(ecnt + t, 0, Kev - 1)
-            esel = (jnp.arange(Kev)[:, None] == ec[None, :])
-            return jnp.sum(jnp.where(esel, evi, 0), axis=0)
-
-        if evi is not None:
-            # Recorded-texel path: the texel COLOR always comes from the
-            # recorded event index (constant w.r.t. scene params; only
-            # the weight carries gradient), so no sky/texture fetch is
-            # recomputed here at all — per-slot 196k-element gathers are
-            # what made the replay 15x slower than the kernel.  Events
-            # the kernel could NOT store (overflow past Kev) were
-            # dropped from the primal image; their radiance is dropped
-            # here too so the VJP differentiates the image the loss
-            # actually saw, not a lossless reconstruction of it.
-            if not bilin:
-                use_rec = emit & (ecnt < Kev)
-                idx0 = rec_at(0)
-                # sky term: f (raytracing.cl:61-81); textured ambient:
-                # the kernel defers the whole f*ambient*texel product
-                # (raytracing.cl:83-84), weight = f*ambient
-                w0 = jnp.where(is_miss, f, f * m["ambient"])
-                w0 = jnp.where(use_rec & emit, w0, 0.0)
-                tex_events.append((jnp.where(use_rec, idx0, -1), w0))
-            else:
-                # bilinear: colors from the 4 recorded taps, fractional
-                # weights RECOMPUTED differentiably — this is where the
-                # spatial texture/sky gradient flows (trace.py's
-                # bilinear paths)
-                use_rec = emit & (ecnt + (n_ev - 1) < Kev)
-                ufs, vfs = pr.map_to_cube_float(d, sky_w // 4)
-                yfs = jnp.clip(F32(sky_h) - vfs, 0.0, F32(sky_h - 1))
-                xfs = jnp.clip(ufs, 0.0, F32(sky_w - 1))
-                sky_taps = pr.bilinear_taps(xfs, yfs, sky_w, sky_h,
-                                            wrap=False)
-                uif = pr.dot3(b0, hit) * m["texture_scale"]
-                vif = pr.dot3(b1, hit) * m["texture_scale"]
-                uif = jnp.where(jnp.isfinite(uif), uif, 0.0)
-                vif = jnp.where(jnp.isfinite(vif), vif, 0.0)
-                tex_taps = pr.bilinear_taps(uif, vif, tex_w, tex_h,
-                                            wrap=True)
-                for t in range(4):
-                    _, _, swt = sky_taps[t]
-                    _, _, twt = tex_taps[t]
-                    r_t = rec_at(t)
-                    w_t = jnp.where(is_miss, f * swt,
-                                    f * m["ambient"] * twt)
-                    w_t = jnp.where(use_rec & emit, w_t, 0.0)
-                    tex_events.append((jnp.where(use_rec, r_t, -1), w_t))
-            ecnt = ecnt + n_ev * emit.astype(jnp.int32)
-            amb_tex_on = ~textured    # textured ambient rides tex_events
-            sky_rgb = None
+        if not bilin:
+            pick = jnp.clip(picks[s], 0, None)
+            sky_rgb = jnp.take(sky_flat, jnp.minimum(pick, sky_h * sky_w - 1),
+                               axis=0)
+            texel = jnp.take(tex_flat, jnp.minimum(pick, tex_flat.shape[0]
+                                                   - 1), axis=0)
         else:
-            # no recorded events: recompute the discrete texel picks
-            # (index gradients are zero either way)
-            if not bilin:
-                uu, vv = pr.map_to_cube(d, sky_w // 4)
-                syy = jnp.clip(np.int32(sky_h) - vv, 0, sky_h - 1)
-                sxx = jnp.clip(uu, 0, sky_w - 1)
-                sky_rgb = sky[syy, sxx]             # [n_pix, 3], constant
-                xi, yi = pr.texture_texel_coords(b0, b1, hit,
-                                                 m["texture_scale"],
-                                                 tex_h, tex_w)
-                texel = tex[tid, yi, xi]            # [n_pix, 3], constant
-            else:
-                ufs, vfs = pr.map_to_cube_float(d, sky_w // 4)
-                yfs = jnp.clip(F32(sky_h) - vfs, 0.0, F32(sky_h - 1))
-                xfs = jnp.clip(ufs, 0.0, F32(sky_w - 1))
-                sky_taps = pr.bilinear_taps(xfs, yfs, sky_w, sky_h,
-                                            wrap=False)
-                uif = pr.dot3(b0, hit) * m["texture_scale"]
-                vif = pr.dot3(b1, hit) * m["texture_scale"]
-                uif = jnp.where(jnp.isfinite(uif), uif, 0.0)
-                vif = jnp.where(jnp.isfinite(vif), vif, 0.0)
-                tex_taps = pr.bilinear_taps(uif, vif, tex_w, tex_h,
-                                            wrap=True)
-                sky_rgb = jnp.zeros((n_pix, 3), F32)
-                texel = jnp.zeros((n_pix, 3), F32)
-                for t in range(4):
-                    sxt, syt, swt = sky_taps[t]
-                    txt, tyt, twt = tex_taps[t]
-                    sky_rgb = sky_rgb + swt[:, None] * sky[syt, sxt]
-                    texel = texel + twt[:, None] * tex[tid, tyt, txt]
-            amb_tex_on = jnp.ones_like(is_miss)
+            b0 = take(pb0, code - ns)
+            b1 = take(pb1, code - ns)
+            tid = jnp.clip(m["texture_id"].astype(jnp.int32), 0, None)
+            ufs, vfs = pr.map_to_cube_float(d, sky_w // 4)
+            yfs = jnp.clip(F32(sky_h) - vfs, 0.0, F32(sky_h - 1))
+            xfs = jnp.clip(ufs, 0.0, F32(sky_w - 1))
+            uif = pr.dot3(b0, hit) * m["texture_scale"]
+            vif = pr.dot3(b1, hit) * m["texture_scale"]
+            uif = jnp.where(jnp.isfinite(uif), uif, 0.0)
+            vif = jnp.where(jnp.isfinite(vif), vif, 0.0)
+            sky_rgb = jnp.zeros((n_pix, 3), F32)
+            texel = jnp.zeros((n_pix, 3), F32)
+            for (sxt, syt, swt), (txt, tyt, twt) in zip(
+                    pr.bilinear_taps(xfs, yfs, sky_w, sky_h, wrap=False),
+                    pr.bilinear_taps(uif, vif, tex_w, tex_h, wrap=True)):
+                sky_rgb = sky_rgb + swt[:, None] * sky[syt, sxt]
+                texel = texel + twt[:, None] * tex[tid, tyt, txt]
+        img = img + jnp.where(is_miss, f, 0.0)[:, None] * sky_rgb
 
-        if sky_rgb is not None:
-            img = img + jnp.where(is_miss, f, 0.0)[:, None] * sky_rgb
-
-        # ambient (raytracing.cl:83-84); the texel color is constant,
-        # f/ambient stay differentiable.  Textured hits are handled via
-        # tex_events when records exist (see above).
-        amb_rgb = jnp.where(textured[:, None], texel, m_rgb) \
-            if sky_rgb is not None else m_rgb
-        img = img + jnp.where(is_solid & amb_tex_on,
-                              f * m["ambient"], 0.0)[:, None] * amb_rgb
+        # ambient (raytracing.cl:83-84); the texel colour is constant,
+        # f/ambient stay differentiable
+        amb_rgb = jnp.where(textured[:, None], texel, m_rgb)
+        img = img + jnp.where(is_solid, f * m["ambient"], 0.0)[:, None] \
+            * amb_rgb
 
         # direct Phong lighting against recorded shadow ratios
         # (raytracing.cl:87-136 with ssr frozen)
@@ -427,6 +256,7 @@ def replay_render(scene: Scene, assets: SceneAssets,
                 * ssr[s, li]
             half = _normalize(v_dir + sd)
             ndh = jnp.maximum(0.0, pr.dot3(n_vec, half))
+            # the 1e-30 floor keeps pow's gradient finite where ndh == 0
             spec = jnp.power(jnp.maximum(ndh, F32(1e-30)),
                              m["shininess"]) * m["specular"] * f
             ndl = jnp.maximum(0.0, pr.dot3(n_vec, sd))
@@ -437,7 +267,7 @@ def replay_render(scene: Scene, assets: SceneAssets,
         # ---- child candidates (raytracing.cl:138-179) ----
         n2 = jnp.where(n1 == default_n, m["n"], default_n)
         n2 = jnp.where(n2 != 0, n2, 1.0)   # dead-lane guard for n1/n2
-        ra_f = _schlick(n1, n2, d, n_vec)
+        ra_f = pr.schlick(n1, n2, d, n_vec)
         ra = jnp.where(m["dielectric"] > 0.5,
                        m["reflectivity"] + (1.0 - m["reflectivity"]) * ra_f,
                        m["reflectivity"])
@@ -447,7 +277,7 @@ def replay_render(scene: Scene, assets: SceneAssets,
         entering = n1 < n2
         co = jnp.where(entering[:, None], ph - 2.0 * eps * n_vec, ph)
         rn = jnp.where(entering[:, None], n_vec, -n_vec)
-        refr_d, tir = _refract(n1, n2, d, rn)
+        refr_d, tir = pr.refract(n1, n2, d, rn)
         can_refr = is_solid & (m["transparent"] > 0.5) & (ra < 1.0) & ~tir
         f_refr = jnp.where(can_refr, f * (1.0 - ra), 0.0)
 
@@ -455,49 +285,4 @@ def replay_render(scene: Scene, assets: SceneAssets,
             ph, refl_d, f_refl[:, None], n1[:, None],
             co, refr_d, f_refr[:, None], n2[:, None]], axis=1))
 
-    if tex_events:
-        img = img + _batched_texel_sum(
-            atlas, jnp.stack([e[0] for e in tex_events]),
-            jnp.stack([e[1] for e in tex_events]))
-
     return img.reshape(height, width, 3)
-
-
-def _batched_texel_sum(atlas, idx, w):
-    """One fused atlas row-gather for ALL deferred texel terms.
-
-    ``idx`` [F, n_pix] i32 atlas indices (-1 = none), ``w`` [F, n_pix]
-    f32 differentiable weights.  Returns sum_f w * texel_rgb -> [n_pix,
-    3].  Same fast-path discipline as pallas_trace._resolve_events:
-    64-texel row gather + in-register one-hot lane select, padded up to
-    the DMA fast-path cliff, consumers kept plain same-shape elementwise
-    (a stacked channel axis knocks the gather off the fast path).
-    """
-    from .pallas_trace import (ELEM_GATHER_MAX, GATHER_FAST_ELEMS,
-                               GATHER_PAD_MIN)
-    nf, n_pix = idx.shape
-    flat_i = idx.reshape(-1)
-    flat_w = w.reshape(-1)
-    n = nf * n_pix
-    if GATHER_PAD_MIN < n < GATHER_FAST_ELEMS:
-        pad = GATHER_FAST_ELEMS - n
-        flat_i = jnp.concatenate(
-            [flat_i, jnp.full((pad,), -1, flat_i.dtype)])
-        flat_w = jnp.concatenate([flat_w, jnp.zeros((pad,), F32)])
-    ic = jnp.clip(flat_i, 0, None)
-    if n < ELEM_GATHER_MAX:
-        # small resolve: flat element gather beats the row fast path
-        # (see pallas_trace.ELEM_GATHER_MAX)
-        texel = jnp.take(atlas.rows.reshape(-1), ic)
-    else:
-        lane64 = jnp.arange(64, dtype=jnp.int32)
-        rows = jnp.take(atlas.rows, ic >> 6, axis=0)      # [N, 64]
-        texel = jnp.where(lane64 == (ic & 63)[:, None], rows,
-                          0).sum(axis=-1)
-    scale = jnp.where(flat_i >= 0, flat_w, 0.0) / F32(255.0)
-    r = scale * ((texel >> 16) & 0xFF).astype(F32)
-    g = scale * ((texel >> 8) & 0xFF).astype(F32)
-    b = scale * (texel & 0xFF).astype(F32)
-    return jnp.stack([r[:n].reshape(nf, n_pix).sum(axis=0),
-                      g[:n].reshape(nf, n_pix).sum(axis=0),
-                      b[:n].reshape(nf, n_pix).sum(axis=0)], axis=-1)

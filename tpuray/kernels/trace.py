@@ -1,6 +1,6 @@
 """The Whitted ray tracer as a vectorized, masked depth-first traversal.
 
-TPU-native re-design of the ``raytracer`` OpenCL kernel
+A re-design of the ``raytracer`` OpenCL kernel
 (src/cl/raytracing.cl:14-195).  The reference gives every pixel its own
 work-item running a *recursive-descent* loop over an explicit ray stack
 (``rray ray_stack[MAX_DEPTH]``, raytracing.cl:28-39): reflection continues
@@ -30,8 +30,6 @@ Two loop modes (config.loop):
 """
 from __future__ import annotations
 
-import contextlib
-import os
 from typing import NamedTuple, Tuple
 
 import jax
@@ -48,29 +46,7 @@ I32 = jnp.int32
 INF = np.float32(np.inf)
 
 
-# ---------------------------------------------------------------------------
-# table gather: one-hot contraction for small tables, real gather for large
-# ---------------------------------------------------------------------------
-
-_ONEHOT_MAX = 64
-
-
-def _take(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
-    """table [N, ...] gathered at idx [P] -> [P, ...]."""
-    n = table.shape[0]
-    if n == 0:
-        shape = (idx.shape[0],) + table.shape[1:]
-        return jnp.zeros(shape, table.dtype)
-    if n > _ONEHOT_MAX:
-        return jnp.take(table, jnp.clip(idx, 0, n - 1), axis=0)
-    oh = jnp.arange(n, dtype=I32)[None, :] == idx[:, None]          # [P, N]
-    if table.dtype == jnp.bool_:
-        t = table[None, :] if table.ndim == 1 else table[None]
-        return jnp.any(oh & table[None, :], axis=1)
-    if table.ndim == 1:
-        return jnp.where(oh, table[None, :], 0).sum(axis=1)
-    oh_f = oh.astype(table.dtype)
-    return jnp.einsum("pn,nk->pk", oh_f, table)
+_take = pr.take_rows
 
 
 class LaneMaterial(NamedTuple):
@@ -122,67 +98,6 @@ def _plane_ts(scene: Scene, o, d):
 
 _TRI_TILE = 512
 _TRI_NO_ID = I32(2 ** 30)
-
-# --- triangle-query engine -------------------------------------------------
-# 'xla' (default): the pure-jnp tiled scans below.  'pallas': the
-# megakernel's MXU block-sweep exposed as standalone query kernels
-# (pallas_trace.tri_query_*) — the same brute-force-per-block model at
-# megakernel-class speed, usable per device under scene parallelism
-# (each device sweeps the blocks built from ITS triangle shard and the
-# pmin/pmax/psum reductions below are unchanged).  'pallas_interpret':
-# same kernels in Pallas interpret mode (the virtual-CPU sharding rig).
-# Selected with the tri_query_mode() context or TPURAY_TRI_QUERY.
-_TRI_QUERY = {"mode": os.environ.get("TPURAY_TRI_QUERY", "xla"),
-              "blocks": None, "gid0": None}
-
-
-@contextlib.contextmanager
-def tri_query_mode(mode: str):
-    """Select the triangle-query engine for trace_rays calls traced
-    under this context ('xla' | 'pallas' | 'pallas_interpret')."""
-    if mode not in ("xla", "pallas", "pallas_interpret"):
-        raise ValueError(f"unknown tri_query mode {mode!r}")
-    old = _TRI_QUERY["mode"]
-    _TRI_QUERY["mode"] = mode
-    try:
-        yield
-    finally:
-        _TRI_QUERY["mode"] = old
-
-
-@contextlib.contextmanager
-def _query_blocks_ctx(scene: Scene, tri_axis, tri_shards: int):
-    """Build the Pallas query TriBlocks ONCE per trace (outside the
-    bounce loop, so the table construction is not re-traced into every
-    step) and expose them to _tri_closest/_tri_any_blocker.  Under
-    scene parallelism the blocks come from THIS device's triangle
-    shard (zero-padded rows are degenerate and never hit)."""
-    mode = _TRI_QUERY["mode"]
-    if mode == "xla" or scene.num_triangles == 0:
-        yield
-        return
-    from .pallas_trace import TRI_MAX_TRIANGLES, build_query_blocks
-    if tri_axis is not None and tri_shards > 1:
-        v0, v1, v2, transp, gid0, _ = _tri_shard(scene, tri_axis,
-                                                 tri_shards)
-    else:
-        v0, v1, v2 = scene.tri_v0, scene.tri_v1, scene.tri_v2
-        transp = scene.tri_mat.transparent
-        gid0 = I32(0)
-    if v0.shape[0] > TRI_MAX_TRIANGLES:
-        # the query kernels are VMEM-resident only; oversized shards
-        # fall back to the XLA scan (the streamed path covers the
-        # megakernel engine, not these standalone queries)
-        yield
-        return
-    old = (_TRI_QUERY["blocks"], _TRI_QUERY["gid0"])
-    _TRI_QUERY["blocks"] = build_query_blocks(v0, v1, v2, transp)
-    _TRI_QUERY["gid0"] = gid0
-    try:
-        yield
-    finally:
-        _TRI_QUERY["blocks"], _TRI_QUERY["gid0"] = old
-
 
 def _tri_shard(scene: Scene, tri_axis: str, tri_shards: int):
     """This device's triangle range under scene parallelism.
@@ -259,7 +174,7 @@ def _tri_closest(scene: Scene, o, d, tri_axis=None,
     """Closest triangle hit: (t_best [P] (inf on miss), idx_best [P]).
 
     Tiled scan over triangles so the [P, T] intermediate never materializes
-    in HBM for large meshes (BVH-free brute force per the north star).
+    in device memory for large meshes (BVH-free brute force per the north star).
     With ``tri_axis`` (scene parallelism) each device tests only its
     triangle shard and the winner is reduced with two collectives: a
     pmin of t, then a pmin of the winning GLOBAL id among the devices
@@ -270,30 +185,15 @@ def _tri_closest(scene: Scene, o, d, tri_axis=None,
     if t_count == 0:
         return jnp.full((p,), INF, F32), jnp.zeros((p,), I32)
 
-    qb = _TRI_QUERY["blocks"]
     if tri_axis is not None and tri_shards > 1:
-        if qb is not None:
-            from .pallas_trace import _query_rays
-            t_loc, i_loc = _query_rays(
-                qb, o, d,
-                interpret=_TRI_QUERY["mode"] == "pallas_interpret")
-            gid0 = _TRI_QUERY["gid0"]
-        else:
-            v0, v1, v2, _, gid0, n_valid = _tri_shard(scene, tri_axis,
-                                                      tri_shards)
-            t_loc, i_loc = _tri_closest_arrays(v0, v1, v2, n_valid, o, d)
+        v0, v1, v2, _, gid0, n_valid = _tri_shard(scene, tri_axis,
+                                                  tri_shards)
+        t_loc, i_loc = _tri_closest_arrays(v0, v1, v2, n_valid, o, d)
         t_g = jax.lax.pmin(t_loc, tri_axis)
         gwin = jnp.where((t_loc == t_g) & jnp.isfinite(t_g),
                          i_loc + gid0, _TRI_NO_ID)
         i_g = jax.lax.pmin(gwin, tri_axis)
         return t_g, jnp.clip(i_g, 0, t_count - 1)
-
-    if qb is not None:
-        from .pallas_trace import _query_rays
-        t_loc, i_loc = _query_rays(
-            qb, o, d,
-            interpret=_TRI_QUERY["mode"] == "pallas_interpret")
-        return t_loc, jnp.clip(i_loc, 0, t_count - 1)
 
     pad = (-t_count) % _TRI_TILE if t_count > _TRI_TILE else 0
     v0 = jnp.pad(scene.tri_v0, ((0, pad), (0, 0)))
@@ -345,34 +245,20 @@ def _tri_any_blocker(scene: Scene, o, d, tmax, inclusive: bool,
     rays against triangles, transparent rule matching the sphere rule
     (primitives.cl:408-424).  Opacity is 0.8^crossings (one 0.8 factor
     per transparent triangle crossed — computed from the crossing COUNT
-    so scene-parallel shards combine with one psum; same formulation as
-    the Pallas kernel's exp(count * ln 0.8)).  With ``tri_axis`` the
+    so scene-parallel shards combine with one psum).  With ``tri_axis`` the
     blocked flag pmax-reduces and the count psum-reduces."""
     t_count = scene.num_triangles
     p = o.shape[0]
     if t_count == 0:
         return jnp.zeros((p,), bool), jnp.ones((p,), F32)
 
-    qb = _TRI_QUERY["blocks"]
     if tri_axis is not None and tri_shards > 1:
-        if qb is not None:
-            from .pallas_trace import _query_rays
-            blocked, cnt = _query_rays(
-                qb, o, d, tmax=tmax, inclusive=inclusive,
-                interpret=_TRI_QUERY["mode"] == "pallas_interpret")
-        else:
-            v0, v1, v2, transp, _, n_valid = _tri_shard(scene, tri_axis,
-                                                        tri_shards)
-            blocked, cnt = _tri_blocker_arrays(v0, v1, v2, transp,
-                                               n_valid, o, d, tmax,
-                                               inclusive)
+        v0, v1, v2, transp, _, n_valid = _tri_shard(scene, tri_axis,
+                                                    tri_shards)
+        blocked, cnt = _tri_blocker_arrays(v0, v1, v2, transp, n_valid, o,
+                                           d, tmax, inclusive)
         blocked = jax.lax.pmax(blocked.astype(I32), tri_axis) > 0
         cnt = jax.lax.psum(cnt, tri_axis)
-    elif qb is not None:
-        from .pallas_trace import _query_rays
-        blocked, cnt = _query_rays(
-            qb, o, d, tmax=tmax, inclusive=inclusive,
-            interpret=_TRI_QUERY["mode"] == "pallas_interpret")
     else:
         pad = (-t_count) % _TRI_TILE if t_count > _TRI_TILE else 0
         v0 = jnp.pad(scene.tri_v0, ((0, pad), (0, 0)))
@@ -603,9 +489,8 @@ class TraceState(NamedTuple):
     done: jnp.ndarray     # [P] bool
     result: jnp.ndarray   # [P, 3] final color once done
     # saved parent continuations (write on push, read on pop).  Vector
-    # stacks are [D, 3, P] — lanes minor — so XLA's (8, 128) tiling pads
-    # the P axis, not a 3-wide axis (a [D, P, 3] layout padded 3 -> 128
-    # lanes costs 42x the memory)
+    # stacks are [D, 3, P] — lanes minor — so every stack plane is one
+    # contiguous run over the lanes
     s_o: jnp.ndarray      # [D, 3, P]
     s_d: jnp.ndarray      # [D, 3, P]
     s_c: jnp.ndarray      # [D, 3, P]
@@ -718,7 +603,7 @@ def _trace_step(scene: Scene, assets: SceneAssets, cfg: RenderConfig,
             soft = soft + test_shadow(scene, sample, point, cfg,
                                       tri_axis, tri_shards)
         # shadow_samples == 0 -> unshadowed direct lighting (smooth; used by
-        # gradient tests and the BASELINE "diffuse only" staged config)
+        # gradient tests and the 256x256 d1 "diffuse only" stage)
         ssr = (soft / F32(cfg.shadow_samples) if cfg.shadow_samples
                else soft + F32(1.0))
         dd = pr.distance3(lo[None, :], point)
@@ -820,18 +705,7 @@ def trace_rays(scene: Scene, assets: SceneAssets, o, d, pixel_ids,
     rays and all non-triangle work are replicated.  Divides the
     dominant O(rays * triangles) brute-force cost for large meshes; the
     (tiny) scene tables stay replicated.  Composes with pixel row
-    sharding on a 2D mesh (parallel/shard.py render_sharded_2d).
-
-    Under ``tri_query_mode('pallas')`` the per-device triangle queries
-    run the megakernel MXU block-sweep kernels instead of the jnp
-    scans (same reductions across the axis)."""
-    with _query_blocks_ctx(scene, tri_axis, tri_shards):
-        return _trace_rays_inner(scene, assets, o, d, pixel_ids, cfg,
-                                 tri_axis, tri_shards)
-
-
-def _trace_rays_inner(scene, assets, o, d, pixel_ids, cfg, tri_axis,
-                      tri_shards):
+    sharding on a 2D mesh (parallel/shard.py render_sharded_2d)."""
     st = _init_state(o, d, pixel_ids, cfg)
 
     if cfg.loop == "while":

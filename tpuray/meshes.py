@@ -1,8 +1,8 @@
 """Triangle-mesh generation for the mesh-scene benchmark configs.
 
 The reference supports only spheres + infinite planes (cpu_obj.h:10-48);
-triangle meshes are this framework's extension (BASELINE.json staged config
-5: a ~10k-triangle mesh at 4K).  Meshes are generated procedurally —
+triangle meshes are this framework's extension (the staged benchmark's
+mesh configs go up to a ~10k-triangle mesh at 4K).  Meshes are generated procedurally —
 icosphere subdivision and a torus grid — so benchmarks need no external
 asset, and validated against analytic scenes (an icosphere of high order
 converges to its circumscribed sphere's render).
@@ -112,11 +112,11 @@ def add_mesh(spec: SceneSpec, verts: np.ndarray, faces: np.ndarray,
 
 def mesh_benchmark_scene(order: int = 4,
                          torus_res: Tuple[int, int] = (48, 24)) -> SceneSpec:
-    """The BASELINE config-5 style scene: the canonical lights/planes plus
-    a ~5k-20k-triangle icosphere mesh replacing the analytic spheres.
+    """The staged mesh scene: the canonical lights/planes plus a
+    ~5k-20k-triangle icosphere and torus replacing two analytic spheres.
 
     Triangle count = 20*4^order + 2*nu*nv: the defaults give 7,424; the
-    full BASELINE config 5 ("10k-triangle mesh") uses
+    10k-triangle 4K stage (benchmarks/stages.py) uses
     ``torus_res=(64, 40)`` for 10,240.
     """
     from .scene import PLASTIC, canonical_scene_spec

@@ -1,6 +1,6 @@
 // Native runtime components for tpuray: PNG codec + scene-archive codec.
 //
-// TPU-native equivalent of the reference's C host runtime: png_dump
+// The equivalent of the reference's C host runtime: png_dump
 // (cpu_ray.c:108-165), the wrapper's PNG loader (opencl_wrap.c:241-320) and
 // the scene archive dump_robj/extract_robj (cpu_obj.c:51-101).  The compute
 // path is jax/XLA; this library is the IO side, loaded via ctypes

@@ -1,10 +1,11 @@
 """ctypes bindings for the native C++ runtime components (tpuray/native).
 
 The reference's host runtime is C (opencl_wrap.c, cpu_obj.c, cpu_ray.c);
-the TPU compute path here is jax/XLA, but the IO-side runtime — PNG codec
-and scene-archive codec — has native C++ equivalents built as a shared
-library.  This module loads it if present and exposes a feature check so
-pure-Python fallbacks keep everything working without the build step.
+the compute path here is jax/XLA, but the IO-side runtime — PNG codec and
+scene-archive codec — has optional native C++ equivalents, built as a
+shared library by ``make -C tpuray/native``.  This module loads it if
+present and exposes a feature check; the pure-Python codecs (tpuray.io,
+tpuray.sceneio) need no build step.
 """
 from __future__ import annotations
 

@@ -2,19 +2,19 @@
 
 The reference is strictly single-device/single-process (SURVEY.md §2: the
 only parallelism is a 1-D NDRange on one GPU, opencl_wrap.c:368-374).  For
-multi-host TPU slices the TPU-native equivalent (SURVEY.md §5 "distributed
-communication backend") is:
+several processes (one per host, or one per GPU) the equivalent (SURVEY.md
+§5 "distributed communication backend") is:
 
 * ``jax.distributed.initialize`` once per process — the coordinator wires
-  up cross-host XLA collectives (ICI within a slice, DCN across hosts) and
-  propagates coordinator failure, which is the framework's failure-detection
-  story for multi-host runs.
+  up cross-process XLA collectives (NCCL on GPUs) and propagates
+  coordinator failure, which is the framework's failure-detection story
+  for multi-process runs.
 * a global 1-D ``Mesh`` over every device of every process; the image's
   pixel-tile axis is sharded over it (``shard.render_sharded`` /
   ``loss_and_scene_grad_sharded`` work unchanged — shard_map addresses the
-  global mesh, XLA routes the psum over ICI/DCN).
+  global mesh, XLA routes the psum between the processes).
 
-Single-process use (tests, the driver's virtual-device dryrun, one chip)
+Single-process use (tests, the virtual-device dryrun, the GPUs of one host)
 needs no bootstrap: ``ensure_initialized`` is a no-op unless multi-process
 environment variables are present or explicit arguments are passed.
 """
@@ -29,7 +29,7 @@ from jax.sharding import Mesh
 
 from .shard import AXIS
 
-# set by TPU pod runtimes / launchers (GKE, ray, mpirun wrappers)
+# set by cluster launchers (GKE, ray, mpirun wrappers)
 _ENV_VARS = ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS")
 
 _initialized = False
@@ -42,10 +42,9 @@ def ensure_initialized(coordinator_address: Optional[str] = None,
 
     Returns True when a multi-process runtime was initialized (or already
     was), False for plain single-process execution.  With no arguments it
-    initializes only when a coordinator address is found in the environment
-    or the process runs on a TPU pod runtime that auto-configures
-    (``jax.distributed.initialize()`` with no args); otherwise it is a
-    no-op so single-chip and CPU-test paths never pay the bootstrap.
+    initializes only when a coordinator address is found in the
+    environment; otherwise it is a no-op so single-process and CPU-test
+    paths never pay the bootstrap.
     """
     global _initialized
     if _initialized or jax.process_count() > 1:

@@ -1,8 +1,8 @@
-"""Multi-chip SPMD rendering: pixel-tile sharding over a device Mesh.
+"""Multi-device SPMD rendering: pixel sharding over a device Mesh.
 
 The reference's only parallelism is a single-device 1-D NDRange with one
-work-item per pixel (opencl_wrap.c:368-374, raygen.cl:10).  The TPU-native
-generalization (SURVEY.md §2 parallelism table):
+work-item per pixel (opencl_wrap.c:368-374, raygen.cl:10).  The
+generalization here (SURVEY.md §2 parallelism table):
 
 * **Forward**: the image is sharded by pixel blocks across a 1-D ``Mesh``
   axis ``"tiles"`` via ``shard_map`` — the renderer's data/context
@@ -12,9 +12,9 @@ generalization (SURVEY.md §2 parallelism table):
   shared scene parameters, so the backward pass ends in one
   ``jax.lax.psum`` of the scene-gradient pytree over the mesh — the
   renderer's gradient all-reduce.  XLA schedules it after the local
-  backward compute; on hardware it rides ICI.
+  backward compute and hands it to NCCL on GPUs.
 
-Works unchanged on a real TPU slice or on N virtual CPU devices
+Works unchanged on the GPUs of one host or on N virtual CPU devices
 (``--xla_force_host_platform_device_count``).
 """
 from __future__ import annotations
@@ -31,6 +31,7 @@ from .. import diff
 from ..camera import PerspectiveBasis, generate_rays
 from ..config import RenderConfig
 from ..kernels.trace import trace_rays
+from ..render import choose_engine
 from ..scene import Scene
 from ..textures import SceneAssets
 
@@ -96,12 +97,10 @@ def render_sharded(scene: Scene, assets: SceneAssets, basis: PerspectiveBasis,
 TRI_AXIS = "tri"
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("cfg", "mesh", "tri_query"))
+@functools.partial(jax.jit, static_argnames=("cfg", "mesh"))
 def render_scene_parallel(scene: Scene, assets: SceneAssets,
                           basis: PerspectiveBasis, cfg: RenderConfig,
-                          mesh: Mesh,
-                          tri_query: str = "auto") -> jnp.ndarray:
+                          mesh: Mesh) -> jnp.ndarray:
     """Scene-parallel forward render: TRIANGLES sharded over ``mesh``.
 
     The renderer's tensor parallelism (SURVEY.md §2 scene-parallel row):
@@ -119,10 +118,6 @@ def render_scene_parallel(scene: Scene, assets: SceneAssets,
     mesh-heavy scenes this is the multi-chip scaling axis that pixel
     sharding cannot provide when the image is small.
     """
-    if tri_query == "auto":
-        # the MXU query kernels are the point of scene parallelism on
-        # hardware; virtual-CPU rigs would pay interpret-mode cost
-        tri_query = "pallas" if jax.default_backend() != "cpu" else "xla"
     if len(mesh.axis_names) != 1:
         raise ValueError(
             f"render_scene_parallel shards over a 1-D mesh; got axes "
@@ -133,43 +128,34 @@ def render_scene_parallel(scene: Scene, assets: SceneAssets,
     origins, dirs = generate_rays(basis, cfg.width, cfg.height)
     ids = jnp.arange(cfg.num_pixels, dtype=jnp.uint32)
 
-    # check_vma=False: tri_query='pallas' runs pallas_call inside the
-    # shard (its ShapeDtypeStruct outputs carry no vma annotation)
+    # check_vma=False: the tiled triangle scans (kernels/trace.py) start
+    # from replicated carries and fold in this device's own triangle shard
     @functools.partial(
         jax.shard_map, mesh=mesh,
         in_specs=(P(), P(), P(None), P(None), P(None)),
         out_specs=P(None), check_vma=False)
     def shard_trace(scene_, assets_, o, d, pid):
-        # tri_query='pallas': each device's queries run the megakernel
-        # MXU block-sweep kernels on ITS triangle shard (the cross-axis
-        # reductions are unchanged) — scene parallelism on the fast
-        # engine's triangle machinery (VERDICT r4 item 4)
-        from ..kernels.trace import tri_query_mode
-        with tri_query_mode(tri_query):
-            return trace_rays(scene_, assets_, o, d, pid, cfg,
-                              tri_axis=axis, tri_shards=n)
+        return trace_rays(scene_, assets_, o, d, pid, cfg,
+                          tri_axis=axis, tri_shards=n)
 
     rgb = shard_trace(scene, assets, origins, dirs, ids)
     return rgb.reshape(cfg.height, cfg.width, 3)
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("cfg", "mesh", "tri_query"))
+@functools.partial(jax.jit, static_argnames=("cfg", "mesh"))
 def render_sharded_2d(scene: Scene, assets: SceneAssets,
                       basis: PerspectiveBasis, cfg: RenderConfig,
-                      mesh: Mesh, tri_query: str = "auto") -> jnp.ndarray:
+                      mesh: Mesh) -> jnp.ndarray:
     """2-D parallel forward render: pixels x triangles over a 2-D mesh.
 
     ``mesh`` must have axes (AXIS, TRI_AXIS) = ("tiles", "tri"): the
     pixel dimension shards over "tiles" (zero communication, as in
     :func:`render_sharded`) and each pixel shard's triangle queries
     split over "tri" with pmin/pmax/psum reductions riding that axis
-    only.  The DP x TP layout of a renderer: on hardware, lay "tri"
-    along the faster ICI dimension since it carries the per-step
-    collectives.
+    only: the DP x TP layout of a renderer.  The GPUs of one host are
+    joined all to all (NVLink), so any assignment of devices to the two
+    axes is as good as another; only the axis sizes matter.
     """
-    if tri_query == "auto":
-        tri_query = "pallas" if jax.default_backend() != "cpu" else "xla"
     n_tiles = mesh.shape[AXIS]
     n_tri = mesh.shape[TRI_AXIS]
     n_pix = cfg.num_pixels
@@ -182,39 +168,46 @@ def render_sharded_2d(scene: Scene, assets: SceneAssets,
     dirs = jnp.pad(dirs, ((0, pad), (0, 0)))
     ids = jnp.pad(ids, (0, pad))
 
+    # check_vma=False: as in render_scene_parallel
     @functools.partial(
         jax.shard_map, mesh=mesh,
         in_specs=(P(), P(), P(AXIS), P(AXIS), P(AXIS)),
         out_specs=P(AXIS), check_vma=False)
     def shard_trace(scene_, assets_, o, d, pid):
-        from ..kernels.trace import tri_query_mode
-        with tri_query_mode(tri_query):
-            return trace_rays(scene_, assets_, o, d, pid, cfg,
-                              tri_axis=TRI_AXIS, tri_shards=n_tri)
+        return trace_rays(scene_, assets_, o, d, pid, cfg,
+                          tri_axis=TRI_AXIS, tri_shards=n_tri)
 
     rgb = shard_trace(scene, assets, origins, dirs, ids)
     return rgb[:n_pix].reshape(cfg.height, cfg.width, 3)
+
+
+def _check_kernel(scene: Scene, cfg: RenderConfig) -> None:
+    """Raise, as render.choose_engine does for engine='pallas', where the
+    compiled kernel cannot run (triangles, or no GPU)."""
+    choose_engine(scene, cfg.replace(engine="pallas"))
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "mesh", "interpret"))
 def render_sharded_pallas(scene: Scene, assets: SceneAssets,
                           basis: PerspectiveBasis, cfg: RenderConfig,
                           mesh: Mesh, interpret: bool = False) -> jnp.ndarray:
-    """Forward render on the Pallas megakernel with image ROWS sharded over
+    """Forward render on the GPU kernel with image ROWS sharded over
     ``mesh`` (scene + assets replicated — they are small next to the ray
     state, exactly the reference's everything-on-one-device model scaled
     out, SURVEY.md §2 parallelism table).
 
-    Each device renders a contiguous row block with its own pallas_call,
-    passing the shard's first global row as the kernel's ``row0`` uniform —
+    Each device renders a contiguous row block with its own kernel launch,
+    passing the shard's first global row as the kernel's ``row0`` —
     ray directions and the per-pixel RNG seed are computed from the GLOBAL
     row index, so the sharded render is bit-identical to the unsharded one.
-    Zero cross-chip communication in the forward pass.  ``interpret=True``
+    Zero cross-device communication in the forward pass.  ``interpret=True``
     runs the kernel in Pallas interpret mode (CPU meshes / virtual-device
     tests).
     """
     from ..kernels.pallas_trace import render_pallas
 
+    if not interpret:
+        _check_kernel(scene, cfg)
     n = mesh.devices.size
     rows_per = -(-cfg.height // n)
     sub_cfg = cfg.replace(height=rows_per)
@@ -291,18 +284,20 @@ def loss_and_scene_grad_sharded_pallas(
         scene: Scene, assets: SceneAssets, basis: PerspectiveBasis,
         target: jnp.ndarray, cfg: RenderConfig, mesh: Mesh,
         interpret: bool = False) -> Tuple[jnp.ndarray, Scene]:
-    """L2 loss + scene gradient on the MEGAKERNEL engine, image rows
-    sharded over ``mesh`` — multi-chip inverse rendering at engine speed.
+    """L2 loss + scene gradient on the GPU kernel, image rows sharded over
+    ``mesh`` — multi-device inverse rendering at kernel speed.
 
-    Each device runs the record-mode Pallas forward on its row block (the
+    Each device runs the record-mode kernel forward on its row block (the
     saved-path replay custom VJP, diff.render_pallas_diff, with the
     shard's first global row as ``row0``), backward replays locally, and
     the scene-gradient pytree is psum'd over the mesh — the same one
     all-reduce as the XLA path (loss_and_scene_grad_sharded), but with
-    both directions at megakernel speed.  ``target`` is [H, W, 3] float32
+    the forward on the kernel.  ``target`` is [H, W, 3] float32
     linear rgb.  The loss is display-space (clipped to [0, 1]) to match
     apps/invrender.py's objective.
     """
+    if not interpret:
+        _check_kernel(scene, cfg)
     n = mesh.devices.size
     rows_per = -(-cfg.height // n)
     sub_cfg = cfg.replace(height=rows_per)
@@ -337,10 +332,10 @@ def loss_and_scene_grad_sharded_pallas(
 
 def dryrun(n_devices: int) -> None:
     """Compile + execute one sharded forward, one sharded forward+grad
-    step, and one megakernel-under-shard_map render (interpret mode on
-    CPU meshes) over an ``n_devices`` mesh on tiny shapes (driver hook).
-    Also exercises the multi-host bootstrap path (a no-op single-process,
-    SURVEY.md §5 distributed backend)."""
+    step, and one kernel-under-shard_map render over an ``n_devices`` mesh
+    on tiny shapes.  On a CPU mesh (the virtual-device rig) the kernel runs
+    in interpret mode.  Also exercises the multi-host bootstrap path (a
+    no-op single-process, SURVEY.md §5 distributed backend)."""
     from ..camera import Camera, perspective_basis
     from ..config import (GOLDEN_CAMERA_LOOKDIR, GOLDEN_CAMERA_ORIGIN)
     from ..scene import canonical_scene_spec
@@ -372,7 +367,7 @@ def dryrun(n_devices: int) -> None:
     loss.block_until_ready()
     assert np.isfinite(float(loss))
 
-    # sharded replay-VJP (megakernel fwd + replay bwd per row shard)
+    # sharded replay-VJP (kernel fwd + replay bwd per row shard)
     ptarget = jnp.zeros((cfg.height, cfg.width, 3), jnp.float32)
     ploss, _ = loss_and_scene_grad_sharded_pallas(
         scene, assets, basis, ptarget, cfg, mesh, interpret=interp)

@@ -9,9 +9,11 @@ is what makes interactive param-swap re-render cheap (rayinteractive.c
 re-binds 6 camera scalars per keypress; here we re-call the jitted function
 with a new ``PerspectiveBasis`` pytree).
 
-Renders run chunked: rays are traced in ``cfg.chunk_size`` pixel blocks via
-``lax.map`` so HBM stays bounded and each chunk's DFS while-loop terminates
-on its own worst case.
+Two engines: the GPU kernel (kernels/pallas_trace.py) and the XLA tracer
+(kernels/trace.py); :func:`choose_engine` holds the one rule between them.
+The tracer runs chunked: rays are traced in ``cfg.chunk_size`` pixel blocks
+via ``lax.map`` so device memory stays bounded and each chunk's DFS
+while-loop terminates on its own worst case.
 """
 from __future__ import annotations
 
@@ -36,24 +38,35 @@ def _pad_to(x, n, axis=0):
     return jnp.pad(x, widths)
 
 
-def _use_pallas(scene: Scene, cfg: RenderConfig) -> bool:
-    from .kernels.pallas_trace import (TRI_STREAM_MAX_TRIANGLES,
-                                       pallas_supported)
-    if cfg.engine == "pallas":
-        return True
+def choose_engine(scene: Scene, cfg: RenderConfig,
+                  backend: str = None) -> str:
+    """The engine that renders ``scene`` on ``backend`` (default: JAX's
+    default backend): ``"pallas"`` (the GPU kernel) or ``"xla"`` (the
+    tracer).
+
+    ``cfg.engine='auto'`` takes the kernel on a GPU for scenes without
+    triangles and the tracer for everything else.  ``'pallas'`` on a scene
+    or backend the kernel cannot take raises instead of falling back;
+    ``'xla'`` always takes the tracer."""
+    backend = backend or jax.default_backend()
     if cfg.engine == "xla":
-        return False
-    supported = pallas_supported(scene, cfg)
-    if not supported:
-        # never downgrade silently: the XLA tracer is ~100x slower
-        import warnings
-        warnings.warn(
-            f"engine='auto' fell back to the XLA tracer: the scene's "
-            f"{scene.num_triangles} triangles exceed the megakernel's "
-            f"HBM-streamed table cap ({TRI_STREAM_MAX_TRIANGLES}); "
-            f"expect a ~100x slower render",
-            RuntimeWarning, stacklevel=3)
-    return supported and jax.default_backend() != "cpu"
+        return "xla"
+    if cfg.engine not in ("auto", "pallas"):
+        raise ValueError(f"unknown engine {cfg.engine!r}")
+    why = None
+    if scene.num_triangles:
+        why = (f"the scene has {scene.num_triangles} triangles and the "
+               "kernel renders spheres, planes and lights only")
+    elif backend != "gpu":
+        why = (f"the kernel is compiled for the GPU and the backend is "
+               f"{backend!r} (tests run it with interpret=True through "
+               "kernels.pallas_trace.render_pallas)")
+    if why is None:
+        return "pallas"
+    if cfg.engine == "pallas":
+        raise ValueError(f"engine='pallas' cannot render here: {why}; "
+                         "use engine='auto' or 'xla'")
+    return "xla"
 
 
 @functools.partial(jax.jit, static_argnames=("cfg",))
@@ -97,55 +110,10 @@ def render_from_basis_pallas(scene: Scene, assets: SceneAssets,
 
 def render_from_basis(scene: Scene, assets: SceneAssets,
                       basis: PerspectiveBasis, cfg: RenderConfig):
-    """Engine-dispatching forward render (cfg.engine: auto|pallas|xla).
-
-    The Pallas tile megakernel is the fast path on TPU hardware; the XLA
-    tracer is the differentiable/portable path and covers triangle scenes.
-    """
-    if _use_pallas(scene, cfg):
+    """Forward render on the engine :func:`choose_engine` picks."""
+    if choose_engine(scene, cfg) == "pallas":
         return render_from_basis_pallas(scene, assets, basis, cfg)
     return render_from_basis_xla(scene, assets, basis, cfg)
-
-
-@functools.partial(jax.jit, static_argnames=("cfg",))
-def _render_pallas_checked_jit(scene: Scene, assets: SceneAssets,
-                               basis: PerspectiveBasis, cfg: RenderConfig):
-    from .kernels.pallas_trace import render_pallas_checked
-    return render_pallas_checked(scene, assets, basis, cfg)
-
-
-def render_from_basis_checked(scene: Scene, assets: SceneAssets,
-                              basis: PerspectiveBasis, cfg: RenderConfig,
-                              max_retries: int = 2):
-    """Megakernel render with the event-overflow feedback loop.
-
-    The Pallas engine defers texel (sky/texture) contributions to a
-    bounded per-pixel event buffer; deep reflect/refract chains can exceed
-    it, silently dropping terminal contributions with tiny throughput.
-    This wrapper reads the kernel's overflow counters and re-renders with
-    the exact needed capacity (host-side control flow — each retry is a
-    recompile, which only offline/once-per-config paths should pay).
-
-    Returns (img, info) with info = {dropped, retries, event_slots}:
-    ``dropped`` > 0 after ``max_retries`` means the scene needs more than
-    64 slots (the 6-bit event addressing cap) and the image is degraded —
-    callers should surface that loudly.
-    """
-    if not _use_pallas(scene, cfg):
-        img = render_from_basis_xla(scene, assets, basis, cfg)
-        return img, {"dropped": 0, "retries": 0,
-                     "event_slots": 0, "engine": "xla"}
-    dropped = 0
-    for attempt in range(max_retries + 1):
-        img, dropped_a, needed_a = _render_pallas_checked_jit(
-            scene, assets, basis, cfg)
-        dropped = int(dropped_a)
-        if dropped == 0 or attempt == max_retries:
-            break
-        cfg = cfg.replace(event_slots=min(int(needed_a), 64))
-    return img, {"dropped": dropped, "retries": attempt,
-                 "event_slots": cfg.resolved_event_slots(),
-                 "engine": "pallas"}
 
 
 def render(scene: Scene, assets: SceneAssets, camera: Camera,

@@ -1,9 +1,9 @@
 """Scene model: materials, spheres, planes, triangles, lights — as JAX pytrees.
 
-TPU-native equivalent of the reference's host scene model (cpu_obj.{h,c}:
+The equivalent of the reference's host scene model (cpu_obj.{h,c}:
 struct defs at cpu_obj.h:10-48, material presets at cpu_obj.c:6-49).  Instead
 of arrays-of-structs we use structure-of-arrays NamedTuples so that the whole
-scene is a differentiable pytree that vectorizes over primitives on the VPU.
+scene is a differentiable pytree that vectorizes over primitives.
 
 Two levels of representation:
 
@@ -14,8 +14,8 @@ Two levels of representation:
   float32 leaves; gradients flow to every float leaf (geometry, materials,
   lights).  Integer/boolean fields (texture ids, flags) are non-differentiable.
 
-Triangles are an extension over the reference (required by BASELINE.json
-config 5); the reference supports only spheres + infinite planes.
+Triangles are an extension over the reference; the reference supports only
+spheres + infinite planes.
 """
 from __future__ import annotations
 
@@ -201,12 +201,12 @@ def _morton_argsort(tris: Sequence[TriangleSpec]) -> np.ndarray:
     """Spatial (Morton / Z-order) ordering of triangles by centroid.
 
     Triangle order is semantically irrelevant to the renderer (closest-hit
-    over a set; ties only on shared edges, a measure-zero set), but the
-    Pallas megakernel packs consecutive triangles into 512-wide MXU blocks
-    whose AABBs drive per-block culling (kernels/pallas_trace.py
-    tri_cull): spatially sorted input makes those AABBs tight for ANY mesh
-    order, not just meshes whose authoring order happens to be coherent.
-    10 bits per axis over the scene bounding box, stable argsort.
+    over a set; ties only on shared edges, a measure-zero set), but blocks
+    of consecutive triangles (the tracer's scan tiles, a linear BVH built
+    on this order) have tight bounds only when neighbours in the list are
+    neighbours in space — for ANY mesh order, not just meshes whose
+    authoring order happens to be coherent.  10 bits per axis over the
+    scene bounding box, stable argsort.
     """
     n = len(tris)
     if n <= 1:

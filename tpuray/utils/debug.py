@@ -3,17 +3,16 @@
 The reference has no sanitizers (SURVEY.md §5): its kernels are
 embarrassingly parallel and its only checks are print+exit(1) error paths.
 In JAX, data races are structurally absent (pure functions); the failure
-modes that remain are NaN/Inf propagation (refract/normalize/pow edge
-cases) and silent Pallas miscompiles.  This module packages the standard
-countermeasures:
+mode that remains is NaN/Inf propagation (refract/normalize/pow edge
+cases).  This module packages the standard countermeasures:
 
 * :func:`nan_guard` — context manager enabling ``jax_debug_nans`` so the
   first NaN-producing primitive raises with a stack trace.
 * :func:`check_finite` — assert a pytree of arrays is finite (host-side,
   for tests and app --selfcheck flags).
-* :func:`interpret_mode` — force Pallas kernels through the interpreter
-  (``pltpu.force_tpu_interpret_mode``), the Mosaic equivalent of running
-  under a simulator.
+
+A Pallas kernel runs in interpret mode when its caller passes
+``interpret=True`` (kernels/pallas_trace.py); the tests do.
 """
 from __future__ import annotations
 
@@ -44,12 +43,3 @@ def check_finite(tree, label: str = "value") -> None:
             raise FloatingPointError(
                 f"{label}{jax.tree_util.keystr(path)}: {bad} non-finite "
                 f"values (shape {arr.shape})")
-
-
-@contextlib.contextmanager
-def interpret_mode() -> Iterator[None]:
-    """Run all Pallas kernels interpreted (slow, exact reference
-    semantics) — the sanitizer analog for Mosaic lowering bugs."""
-    from jax.experimental.pallas import tpu as pltpu
-    with pltpu.force_tpu_interpret_mode():
-        yield

@@ -1,9 +1,9 @@
 """Metrics / observability: structured render reports and profiling hooks.
 
 The reference's observability is a single printf ("Done, took: N ms",
-raypng.c:96).  Here every timed render produces a structured report with the
-BASELINE.json headline metric (Mrays/s), and ``profile_trace`` wraps
-``jax.profiler`` for on-TPU tracing (the analog of the reference's
+raypng.c:96).  Here every timed render produces a structured report with
+primary rays per second (Mrays/s), and ``profile_trace`` wraps
+``jax.profiler`` for device tracing (the analog of the reference's
 gettimeofday bracket around the kernel launches, raypng.c:15,85-96, but
 yielding a full XLA timeline instead of one number).
 """
@@ -65,3 +65,28 @@ def timed(label: str) -> Iterator[None]:
     yield
     (jax.device_put(0.0) + 0).block_until_ready()
     print(f"{label}: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+
+def card_info() -> "str | None":
+    """The GPU's name and power limit as ``nvidia-smi`` reports them
+    (``"NVIDIA H100 80GB HBM3, 700.00 W"``), or None without nvidia-smi.
+
+    A card set below its maximum power runs slower under load, so every
+    device time is reported beside this line."""
+    import subprocess
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out.strip().splitlines()[0] if out.strip() else None
+
+
+def device_info() -> dict:
+    """What a measurement ran on: JAX's platform, device kind and count,
+    and the card line of :func:`card_info`."""
+    dev = jax.devices()[0]
+    return {"platform": dev.platform, "kind": dev.device_kind,
+            "count": len(jax.devices()), "card": card_info()}
